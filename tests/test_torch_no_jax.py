@@ -4,7 +4,8 @@ The machine with the card has no jax, and the JAX package's ``__init__``
 imports jax and turns on x64 mode, so no module of the port may import
 either. A subprocess blocks ``jax`` in ``sys.modules``, imports every module
 of the port, builds a tiny ROC-compressed IVF index on the CPU and searches
-it. The JAX package is imported here only to compare with.
+it, builds a tiny NSG graph and searches it with its three containers, and
+runs the two probes. The JAX package is imported here only to compare with.
 """
 
 import ast
@@ -41,6 +42,22 @@ D1, I1 = index.search_defer_id_decoding(xq, 5, nprobe=2)
 assert torch.equal(I0.sort(1).values, I1.sort(1).values)
 assert torch.allclose(D0, D1, rtol=1e-4, atol=1e-3)
 assert int(I1.min()) >= 0 and int(I1.max()) < 600
+
+from vector_db_id_compression_tpu_torch.ops.probes import ProbeDecodeStep, ProbeGather
+from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
+from vector_db_id_compression_tpu_torch.search.nsg import build_nsg, search_graph
+from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
+
+g, medoid = build_nsg(xb, R=8)
+Dg, Ig = search_graph_device(g, xb, xq, 5, entry=medoid)
+for c in (RocGraph(g), RocBlockGraph(g, block=4)):
+    D2, I2 = search_graph_device(c, xb, xq, 5, entry=medoid)
+    assert torch.equal(I2, Ig) and torch.equal(D2, Dg)
+Dh, Ih, _ = search_graph(g, xb, xq, 5, entry=medoid)
+assert torch.equal(Ih, Ig) and torch.equal(Dh, Dg)
+ones = torch.ones((4, 8), dtype=torch.int32)
+assert ProbeGather.run(ones, torch.zeros((4, 1), dtype=torch.int32), steps=5).tolist() == [[5]] * 4
+assert ProbeDecodeStep.run(ones, torch.zeros((1, 8), dtype=torch.int32), steps=6).shape == (6, 8)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "vector_db_id_compression_tpu"))
 assert not loaded, loaded

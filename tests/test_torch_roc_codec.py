@@ -140,6 +140,19 @@ def test_wrappers_run_plain_version_on_cpu(case_no):
     assert (RocEncoder.launches, RocDecoder.launches) == launches
 
 
+@pytest.mark.parametrize("past_end", [-1, 0, 1 << 40], ids=["negative", "at-end", "far"])
+def test_decode_lanes_out_of_range_raises(past_end):
+    """A lane outside the table raises IndexError (on CUDA the kernel's
+    error flag reports it; tests/test_torch_cuda.py)."""
+    ids, lengths, prec = make_batch(1)
+    lengths_t, prec_t = torch.from_numpy(lengths), torch.from_numpy(prec)
+    states, _ = RocEncoder.encode(torch.from_numpy(ids.view(np.int64)), lengths_t, prec_t)
+    dec = RocDecoder(states, lengths_t, prec_t, td.default_pool(ids.shape[1]), ids.shape[1])
+    lane = -1 if past_end < 0 else len(lengths) + past_end
+    with pytest.raises(IndexError, match="lane indices"):
+        dec.decode_lanes(torch.tensor([0, lane]))
+
+
 def test_wrappers_refuse_other_devices():
     """No silent route: a tensor that is neither on the CPU nor on a CUDA
     device raises instead of running the plain version."""

@@ -4,7 +4,8 @@ Port of the JAX package's ``codecs/roc_device.py``. The ANS chain is
 sequential within a list but independent across lists, so a batch of B
 padded lists advances in lockstep through one Python loop of dense torch ops
 over the lane dimension. These two functions are the plain versions of the
-two CUDA kernels (``ops/roc_encode.py``, ``ops/roc_decode.py``): the CPU
+two CUDA kernels (``ops/roc_encode.py``, ``ops/roc_decode.py``), and
+``roc_encode_chained``/``roc_decode_chained`` of their chained mode: the CPU
 tests hold them bit-exact against the JAX codec, and the kernels are held
 bit-exact against them.
 
@@ -294,3 +295,39 @@ def roc_decode_batch(states: RocStates, lengths, precision, pool, n_max: int,
     ids = torch.gather(syms, 1, src)
     ids = torch.where(j < lengths[:, None], ids, torch.zeros_like(ids))
     return ids, st.states()
+
+
+# ---------------------------------------------------------------------------
+# chained coding: S multisets through ONE state per lane (the graph
+# container RocBlockGraph). ANS is a bijection on states, so the slots share
+# a lane's state in turn: encode pushes slot S-1 first, decode pops slot 0
+# first. Each slot keeps its own length and precision.
+# ---------------------------------------------------------------------------
+
+
+def roc_encode_chained(sorted_ids, lengths, precision, pool, states: RocStates,
+                       n_slices: int = 4) -> RocStates:
+    """Encode S multisets per lane, slot S-1 first; the plain version of the
+    encode kernel's chained mode.
+
+    sorted_ids i64[B, S, n_max] (slot ids ascending in [0, lengths[b, s]));
+    lengths, precision i32[B, S]. Empty slots are no-ops. Returns the final
+    states (the sampling orders are not kept: chained storage has no payload
+    to reorder)."""
+    for s in reversed(range(sorted_ids.shape[1])):
+        states, _ = roc_encode_batch(sorted_ids[:, s], lengths[:, s],
+                                     precision[:, s], pool, states, n_slices)
+    return states
+
+
+def roc_decode_chained(states: RocStates, lengths, precision, pool, n_max: int,
+                       n_slices: int = 4):
+    """Inverse of ``roc_encode_chained``; the plain version of the decode
+    kernel's chained mode. Returns (ids i64[B, S, n_max] in each slot's
+    sampling order, zero-padded past its length; states)."""
+    ids = []
+    for s in range(lengths.shape[1]):
+        slot_ids, states = roc_decode_batch(states, lengths[:, s], precision[:, s],
+                                            pool, n_max, n_slices)
+        ids.append(slot_ids)
+    return torch.stack(ids, dim=1), states

@@ -1,7 +1,8 @@
 // Per-lane ROC (bits-back rANS multiset coding) steps, shared by the CUDA
 // kernels roc_encode.cu and roc_decode.cu. Each function advances ONE lane
-// (one inverted list) and mirrors, step for step, the lane-batched torch codec
-// in codecs/roc_device.py — the kernels' plain version — including its clamps
+// (one inverted list, or a block of graph nodes whose neighbour sets are
+// chained through one state) and mirrors, step for step, the lane-batched
+// torch codec in codecs/roc_device.py — the kernels' plain version — including its clamps
 // on stack overflow and pool exhaustion, so the two agree bit for bit.
 //
 // The u64 head and u32 stack words are native types here: no (hi, lo) split,
@@ -144,9 +145,11 @@ ROC_HD int fenwick_select_remove(Strided<int32_t> tree, int n, int k) {
   return pos;
 }
 
-// ROC encode of one lane (reference codec.cpp:123-138). `ids` holds the
-// lane's n ids ascending; order[i] receives the sorted slot emitted at step i
-// (-1 from n to n_max). s starts fresh (head RANS_L, empty stack).
+// ROC encode of one multiset (reference codec.cpp:123-138) onto the lane's
+// state so far: fresh (head RANS_L, empty stack) for a list, or the state the
+// previous slot left for a chained lane. `ids` holds the n ids ascending;
+// order[i], unless order is null, receives the sorted slot emitted at step i
+// (-1 from n to n_max).
 ROC_HD void encode_lane(LaneState& s, const uint64_t* ids, int n, int precision,
                         int n_slices, Strided<int32_t> tree, int32_t* order,
                         int n_max) {
@@ -154,10 +157,23 @@ ROC_HD void encode_lane(LaneState& s, const uint64_t* ids, int n, int precision,
   for (int i = 0; i < n; ++i) {
     uint32_t k = pop_mod(s, (uint32_t)(n - i));
     int pos = fenwick_select_remove(tree, n, (int)k);
-    order[i] = pos;
+    if (order) order[i] = pos;
     push_symbol(s, ids[pos], precision, n_slices);
   }
-  for (int i = n; i < n_max; ++i) order[i] = -1;
+  if (order)
+    for (int i = n; i < n_max; ++i) order[i] = -1;
+}
+
+// S multisets through one lane state (codecs/roc_device.py
+// roc_encode_chained): slot t holds ids[t * n_max, t * n_max + lengths[t]),
+// and slot S-1 goes first so that decode emits slot 0 first. S = 1 is the
+// per-list encode; `order` (nullable) is meaningful only then.
+ROC_HD void encode_slots(LaneState& s, const uint64_t* ids, const int32_t* lengths,
+                         const int32_t* precision, int S, int n_slices,
+                         Strided<int32_t> tree, int32_t* order, int n_max) {
+  for (int t = S - 1; t >= 0; --t)
+    encode_lane(s, ids + (int64_t)t * n_max, lengths[t], precision[t], n_slices,
+                tree, order, n_max);
 }
 
 // ROC decode of one lane (reference codec.cpp:140-152). Writes the n ids in
@@ -175,6 +191,18 @@ ROC_HD void decode_lane(LaneState& s, int n, int precision, int n_slices,
     out[n - 1 - i] = (int64_t)sym;
   }
   for (int j = n; j < n_max; ++j) out[j] = 0;
+}
+
+// Inverse of encode_slots (codecs/roc_device.py roc_decode_chained): slots
+// 0..S-1 in turn on one state, slot t into out[t * n_max, (t + 1) * n_max).
+// The slots share `syms`: step i reads only rows < i, which the current slot
+// has written.
+ROC_HD void decode_slots(LaneState& s, const int32_t* lengths, const int32_t* precision,
+                         int S, int n_slices, Strided<uint64_t> syms, int64_t* out,
+                         int n_max) {
+  for (int t = 0; t < S; ++t)
+    decode_lane(s, lengths[t], precision[t], n_slices, syms, out + (int64_t)t * n_max,
+                n_max);
 }
 
 }  // namespace roc

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels for the ROC codec, their build and their
-wrappers."""
+"""Hand-written CUDA kernels for the ROC codec and two probes of its decode
+step, their build and their wrappers."""

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with nvcc at first use; load with ctypes.
 
-``build()`` compiles every ``csrc/*.cu`` of this package into one shared
+``build()`` compiles every ``csrc/*.cu`` of this package, one nvcc process
+per source, all started together, and links the objects into one shared
 library with a plain C interface, ``_build/libroc_kernels.so`` (listed in
-``.gitignore``), and rebuilds it when a source or header is newer than the
+``.gitignore``). It rebuilds when a source or header is newer than the
 library. The compiler's report (``-Xptxas=-v``: registers, spills, shared
 memory per kernel) is kept beside it in ``_build/build.log``.
 
@@ -25,7 +26,7 @@ BUILD_DIR = CSRC.parent / "_build"
 LIBRARY = BUILD_DIR / "libroc_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc() -> str:
@@ -41,6 +42,21 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds, log: list) -> None:
+    """Run the commands concurrently; log each one's output; raise if any
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\nexited with code {proc.returncode}:\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels if the library is missing or older than a source;
     returns the library's path."""
@@ -49,18 +65,20 @@ def build() -> Path:
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return LIBRARY
     BUILD_DIR.mkdir(exist_ok=True)
-    # compile to a temporary name and rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    nvcc = _nvcc()
+    log: list = []
+    # objects and the library go to temporary names first: a concurrent
+    # loader never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                      for src, obj in zip(sources, objs)], log)
+            lib = str(Path(tmp) / LIBRARY.name)
+            _run_all([[nvcc, "-shared", "-o", lib, *objs]], log)
+        finally:
+            BUILD_LOG.write_text("\n".join(log))
+        os.replace(lib, LIBRARY)
     return LIBRARY
 
 
@@ -71,12 +89,16 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p`` would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.roc_encode_launch.argtypes = [P, P, P, I, I, I, P, I, I, P, P, P, I, P,
+    lib.roc_encode_launch.argtypes = [P, P, P, I, I, I, I, P, I, I, P, P, P, I, P,
                                       P, P, P, P]
     lib.roc_encode_launch.restype = I
-    lib.roc_decode_launch.argtypes = [P, P, I, P, P, P, P, P, I, I, P, I, I, I,
-                                      P, P, P, P, P]
+    lib.roc_decode_launch.argtypes = [P, P, I, P, P, I, P, P, I, P, I, I, P, I, I,
+                                      I, P, P, P, P, P]
     lib.roc_decode_launch.restype = I
+    lib.probe_gather_launch.argtypes = [P, P, I, I, I, P, P]
+    lib.probe_gather_launch.restype = I
+    lib.probe_decode_step_launch.argtypes = [P, P, I, I, I, P, P, P, P]
+    lib.probe_decode_step_launch.restype = I
     lib.roc_error_string.argtypes = [I]
     lib.roc_error_string.restype = ctypes.c_char_p
     return lib

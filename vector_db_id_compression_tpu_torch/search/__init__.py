@@ -1,4 +1,5 @@
-"""Search: k-means coarse quantizer and IVF with deferred ID decoding."""
+"""Search: k-means coarse quantizer, IVF with deferred ID decoding, NSG
+construction and best-first graph search."""
 
 import torch
 

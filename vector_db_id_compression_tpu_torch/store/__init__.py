@@ -1,1 +1,2 @@
-"""Containers: size buckets and the inverted lists with compressed ids."""
+"""Containers: size buckets, the inverted lists with compressed ids and the
+graph adjacency containers."""
