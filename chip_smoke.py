@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths (``vector_db_id_compression_tpu_torch``) once
+Drives the port's three paths (``vector_db_id_compression_tpu_torch``) once
 each, at SIFT1M's shape: 1,000,000 synthetic database vectors of d = 128
-(float32) and 1000 queries, k = 10. The IVF path: an IVF with 1024 lists and
-flat payload, nprobe = 16, the ids of every inverted list ROC-compressed and
-decoded only after the top-k is final (deferred id decoding). The graph path:
-an NSG graph of degree R = 32 over the same database, searched on the card
-with its adjacency dense, ROC-compressed per node, and ROC-compressed in
-chained blocks of 16 nodes, decoded inside the traversal. Phases:
+(float32) and 1000 queries, k = 10. The IVF paths: an IVF with 1024 lists,
+nprobe = 16, the ids of every inverted list ROC-compressed and decoded only
+after the top-k is final (deferred id decoding), once with flat payload and
+once with 16-byte PQ codes (IVF1024,PQ16) and the long lists' ids coded as
+interleaved chunk lanes. The graph path: an NSG graph of degree R = 32 over
+the same database, searched on the card with its adjacency dense,
+ROC-compressed per node, and ROC-compressed in chained blocks of 16 nodes,
+decoded inside the traversal. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -20,16 +22,27 @@ chained blocks of 16 nodes, decoded inside the traversal. Phases:
               search again; the ROC search must return the uncompressed
               search's rows (ids are lossless); both kernels must have been
               launched by that path; then bits/id and phase times
-  5. graph    build_nsg on the card, the two ROC graphs, and the search with
+  5. pq       IVF1024,PQ16: train, add, search uncompressed (the decoded-
+              reconstruction scan), swap in RocInvertedLists and then
+              InterleavedRocInvertedLists and search each, then the LUT scan
+              over the interleaved container: each equal to the uncompressed
+              search under the near-tie rule (D within tolerance, labels
+              differ only where D ties: equal codes tie exactly and ROC
+              reorders them); every list's ids recovered by the interleaved
+              decode; both kernels launched in this phase; then bits/id,
+              recall and times
+  6. graph    build_nsg on the card, the two ROC graphs, and the search with
               each of the three containers: identical I and D or the run
               fails; every ROC kernel must have been launched by this phase;
               the host-loop search (search_graph, a separate walk) must give
               the same I on 32 queries; then bits/edge, hops, recall and
               search times
-  6. probes   the two decode-step probes against their plain versions
-  7. timing   each kernel beside its plain version at its paths' shapes:
-              both ROC kernels at the IVF shapes and at the graph's (per node
-              and chained), bit-equal or the run fails
+  7. probes   the two decode-step probes against their plain versions
+  8. timing   each kernel beside its plain version at its paths' shapes:
+              both ROC kernels at the IVF shapes, over the PQ index's chunk
+              entries, and at the graph's (per node and chained), bit-equal
+              or the run fails; the native host codec over the PQ index's
+              1024 lists, equal to the kernels' streams or the run fails
 
 The line before the last is a JSON object with each kernel's launch count
 (from the phases that drive it, counted from 0 just before each), its error
@@ -53,6 +66,7 @@ import torch
 
 NB, NT, NQ, D = 1_000_000, 100_000, 1000, 128
 NLIST, K, NPROBE = 1024, 10, 16
+PQ_M = 16
 GRAPH_R, GRAPH_BLOCK = 32, 16
 NQ_HOST = 32  # queries the host-loop search checks the device walk on
 
@@ -89,6 +103,25 @@ def max_abs_err(got, want) -> float:
             diff = float((g.double() - w.double()).abs().max())
             err = max(err, diff if g.is_floating_point() else max(diff, 1.0))
     return err
+
+
+def assert_near_ties(what, D_got, I_got, D_ref, I_ref, rtol, atol):
+    """D within rtol/atol, and a label may differ from the reference's only
+    where the reference's distance ties (within the tolerance) with its
+    neighbour in the row, or at the last slot with the other's distance."""
+    D_got, I_got, D_ref, I_ref = (t.cpu() for t in (D_got, I_got, D_ref, I_ref))
+    torch.testing.assert_close(D_got, D_ref, rtol=rtol, atol=atol)
+
+    def close(a, b):
+        return (a - b).abs() <= atol + rtol * b.abs()
+
+    k = I_ref.shape[1]
+    for i, j in torch.nonzero(I_got != I_ref).tolist():
+        left = j > 0 and bool(close(D_ref[i, j], D_ref[i, j - 1]))
+        right = bool(close(D_ref[i, j], D_ref[i, j + 1] if j + 1 < k else D_got[i, j]))
+        if not (left or right):
+            raise AssertionError(f"{what}: query {i} slot {j}: label differs without a near tie")
+    return int((I_got != I_ref).sum())
 
 
 def phase_device() -> str:
@@ -295,16 +328,118 @@ def phase_main(xt, xb, xq):
         f"vs brute force: {recall:.4f}")
     del xb_d, d2
 
-    t_pos = median_ms(lambda: index.search_positional(xq, K, NPROBE))
-    _, L = index.search_positional(xq, K, NPROBE)
-    t_tr = median_ms(lambda: index._translate(L))
-    t_search = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
-    touched = int(torch.unique(L[L >= 0] >> 32).numel())
+    t_search, t_pos, t_tr, touched = search_times(index, xq)
     log(f"[main] CUDA-event ms: train {t_train:.1f}, add {t_add:.1f}, ROC encode "
         f"(container build) {t_roc:.1f}; search ({NQ} queries, median of 5) "
         f"{t_search:.2f} = positional {t_pos:.2f} + translate {t_tr:.2f} "
         f"({touched} touched lists decoded)")
     return index, roc, launches, I_bf[:, :K]
+
+
+def search_times(index, xq):
+    """(search, positional, translate ms: CUDA-event medians of 5 after a
+    warm-up; lists touched by the translate) for the active container."""
+    t_pos = median_ms(lambda: index.search_positional(xq, K, NPROBE))
+    _, L = index.search_positional(xq, K, NPROBE)
+    t_tr = median_ms(lambda: index._translate(L))
+    t_search = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
+    return t_search, t_pos, t_tr, int(torch.unique(L[L >= 0] >> 32).numel())
+
+
+def phase_pq(xt, xb, xq, I_bf, flat_max_len: int):
+    """IVF1024,PQ16 at nprobe 16 with the RocInvertedLists and the
+    interleaved containers, through the user-facing entry points. Returns
+    (the index, the two containers, this phase's launch counts)."""
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.search import ivf
+    from vector_db_id_compression_tpu_torch.store.invlists import (
+        InterleavedRocInvertedLists, RocInvertedLists)
+
+    budget = ivf.PQ_DECODE_BUDGET
+    # ---- the PQ path; the kernels' launch counts are read from this window
+    RocEncoder.launches = 0
+    RocDecoder.launches = 0
+    index = ivf.IndexIVF(d=D, nlist=NLIST, storage="pq", pq_m=PQ_M, device="cuda")
+    t_train, _ = cuda_ms(lambda: index.train(xt))
+    t_add, _ = cuda_ms(lambda: index.add(xb))
+    decoded_default = index._scan_is_float
+    results = {"uncompressed": index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)}
+    t_roc, roc = cuda_ms(lambda: RocInvertedLists(index.invlists, device="cuda"))
+    index.replace_invlists(roc)
+    results["RocInvertedLists"] = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    t_il, il = cuda_ms(lambda: InterleavedRocInvertedLists(index.invlists, device="cuda"))
+    index.replace_invlists(il)
+    results["interleaved"] = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    ivf.PQ_DECODE_BUDGET = 0
+    index.replace_invlists(il)
+    results["interleaved, LUT scan"] = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    ivf.PQ_DECODE_BUDGET = budget
+    ids, lens = il.decode_lists(torch.arange(NLIST, device="cuda"))
+    torch.cuda.synchronize()
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+    # ----
+
+    if not decoded_default or index._scan_is_float:
+        raise AssertionError("the decoded scan is not the default at this size, or the "
+                             "budget of 0 did not select the LUT scan")
+    D0, I0 = results["uncompressed"]
+    if I0.shape != (NQ, K) or not bool(torch.isfinite(D0).all()):
+        raise AssertionError("PQ search: bad shape or non-finite distances")
+    differ = {}
+    for name, (D1, I1) in results.items():
+        if int(I1.min()) < 0 or int(I1.max()) >= NB:
+            raise AssertionError(f"PQ search with {name}: ids out of range")
+        # the LUT scan sums 16 subspace distances, the decoded scan takes
+        # |y|^2 - 2 x.y + |x|^2 over terms near 2000: a wider atol
+        atol = 1e-2 if "LUT" in name else 1e-3
+        differ[name] = assert_near_ties(f"PQ search with {name}", D1, I1, D0, I0, 1e-4, atol)
+    if min(launches.values()) < 2:
+        raise AssertionError(f"a kernel of the PQ path was launched less than twice: {launches}")
+    # every list's ids, as a multiset, from the interleaved decode
+    lengths = index.invlists.lengths
+    big = torch.iinfo(torch.int64).max
+    cols = torch.arange(ids.shape[1], device="cuda")[None, :]
+    got = torch.where(cols < lens[:, None], ids, big).sort(dim=1).values
+    src = np.full((NLIST, ids.shape[1]), big, dtype=np.int64)
+    for ln in range(NLIST):
+        src[ln, : lengths[ln]] = np.sort(index.invlists.ids[ln].view(np.int64))
+    if not torch.equal(got.cpu(), torch.from_numpy(src)):
+        raise AssertionError("interleaved decode_lists: a list's ids differ from the source")
+    E, n_max = il.decoder.states.head.shape[0], il.decoder.n_max
+    log(f"[pq] IVF{NLIST},PQ{PQ_M} over {index.ntotal} ids: list lengths {lengths.min()}.."
+        f"{lengths.max()} (mean {lengths.mean():.0f}; the flat index's longest: "
+        f"{flat_max_len}); interleaved: {E} chunk entries, n_max {n_max}, "
+        f"{int((il.n_lanes > 1).sum())} lists chunked (S {int(il.n_lanes.max())} at most)")
+    log(f"[pq] on {NQ} queries, k={K}, nprobe={NPROBE}: RocInvertedLists, interleaved "
+        f"(decoded scan) and interleaved (LUT scan) == uncompressed (decoded scan) under the "
+        f"near-tie rule (D rtol 1e-4, atol 1e-3; 1e-2 for the LUT scan); labels at near "
+        f"ties: {differ}; every list's ids recovered by interleaved decode_lists; "
+        f"launches {launches}")
+    n = index.ntotal
+    log(f"[pq] bits/id: RocInvertedLists {roc.compressed_ids_size_in_bytes * 8 / n:.4f}, "
+        f"interleaved {il.compressed_ids_size_in_bytes * 8 / n:.4f} "
+        f"({(il.compressed_ids_size_in_bytes + il.overhead_in_bytes) * 8 / n:.4f} with its "
+        f"overhead_in_bytes {il.overhead_in_bytes})")
+    rec = {name: recalls(I1, I_bf)[1] for name, (_, I1) in results.items()}
+    log(f"[pq] recall@{K} against brute force: " + ", ".join(f"{k_} {v:.4f}"
+                                                          for k_, v in rec.items()))
+    log(f"[pq] CUDA-event ms: train {t_train:.1f} (coarse + {PQ_M} codebooks), add {t_add:.1f} "
+        f"(PQ encode included), RocInvertedLists build {t_roc:.1f}, interleaved build "
+        f"{t_il:.1f}")
+    times = {}
+    for name, container, scan_budget in (("uncompressed", index.invlists, budget),
+                                         ("RocInvertedLists", roc, budget),
+                                         ("interleaved", il, budget),
+                                         ("interleaved, LUT scan", il, 0)):
+        ivf.PQ_DECODE_BUDGET = scan_budget
+        index.replace_invlists(container)
+        times[name] = search_times(index, xq)
+    ivf.PQ_DECODE_BUDGET = budget
+    log(f"[pq] search ms ({NQ} queries, median of 5 after a warm-up) = positional + "
+        "translate: " + "; ".join(f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} "
+                                  f"touched lists)" for name, t in times.items()))
+    return index, roc, il, launches
 
 
 def recalls(I, I_bf):
@@ -441,37 +576,47 @@ def phase_probes(seed: int):
     return entries
 
 
-def time_kernels(index, roc, launches):
-    """Each kernel beside its plain version, on the card, at the main path's
-    shapes: encode of every list of the index, decode of every list."""
+def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
+    """The per-list ROC kernels beside their plain versions on the card,
+    over one lane table (numpy, as ``roc_lane_table`` gives it) that a
+    container's ``decoder`` was built from: encode and decode of every lane.
+    Returns (encode ms, plain ms, error; decode ms, plain ms, error); the
+    encode error also holds the kernel against the container's streams."""
     from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
-    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
 
-    sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
     cuda = torch.device("cuda")
     ids_t = torch.from_numpy(sorted_ids.view(np.int64)).to(cuda)
     len_t, prec_t = torch.from_numpy(lengths).to(cuda), torch.from_numpy(prec).to(cuda)
     B, n_max = ids_t.shape
     maxp = int(prec.max())
-    n_slices = rd.n_slices_for(maxp)
-    pool = rd.default_pool(n_max, cuda)
-
+    n_slices, pool = rd.n_slices_for(maxp), rd.default_pool(n_max, cuda)
     enc_ms = median_ms(lambda: RocEncoder.encode(ids_t, len_t, prec_t), reps=3)
     st_k, order_k = RocEncoder.encode(ids_t, len_t, prec_t)
     enc_plain_ms, (st_p, order_p) = cuda_ms(lambda: rd.roc_encode_batch(
         ids_t, len_t, prec_t, pool, rd.fresh_states(B, rd.stack_capacity(n_max, maxp), cuda),
         n_slices))
-    enc_err = max_abs_err((*st_k, order_k), (*st_p, order_p))
-
-    dec_ms = median_ms(lambda: roc.decoder.decode(), reps=3)
-    ids_k = roc.decoder.decode()
+    enc_err = max(max_abs_err((*st_k, order_k), (*st_p, order_p)),
+                  max_abs_err(tuple(st_k), tuple(decoder.states)))
+    dec_ms = median_ms(decoder.decode, reps=3)
     dec_plain_ms, (ids_p, _) = cuda_ms(lambda: rd.roc_decode_batch(
         st_k, len_t, prec_t, pool, n_max, n_slices))
-    dec_err = max_abs_err(ids_k, ids_p)
+    dec_err = max_abs_err(decoder.decode(), ids_p)
+    return enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err
+
+
+def time_kernels(index, roc, launches):
+    """Each kernel beside its plain version, on the card, at the main path's
+    shapes: encode of every list of the index, decode of every list."""
+    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+
+    sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
+    enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err = lane_kernels_vs_plain(
+        sorted_ids, lengths, prec, roc.decoder)
     if enc_err or dec_err:
         raise AssertionError(f"kernel vs plain at the main path's shapes: encode "
                              f"{enc_err}, decode {dec_err}")
+    B, n_max = sorted_ids.shape
     max_len = int(lengths.max())
     log(f"[timing] {B} lists, n_max {n_max}: encode kernel {enc_ms:.3f} ms vs plain "
         f"{enc_plain_ms:.1f} ms; decode kernel {dec_ms:.3f} ms ({dec_ms * 1e3 / max_len:.4f} "
@@ -489,6 +634,72 @@ def time_kernels(index, roc, launches):
          "launches": launches["roc_decode"], "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms},
     ]
+
+
+def time_pq_kernels(index, roc, il):
+    """Both ROC kernels beside their plain versions over every chunk entry
+    of the PQ index's interleaved container (held also against the
+    container's own streams), and the native host codec over the index's
+    1024 lists, held against the kernels' streams. Returns the numbers by
+    kernel."""
+    from vector_db_id_compression_tpu_torch import native
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.store.invlists import (
+        interleaved_lane_table, roc_lane_table)
+
+    cuda = torch.device("cuda")
+    t = interleaved_lane_table(index.invlists)
+    E, n_max = t.ids.shape
+    enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err = lane_kernels_vs_plain(
+        t.ids, t.lengths, t.precision, il.decoder)
+    if enc_err or dec_err:
+        raise AssertionError(f"kernels vs plain over the chunk entries: encode {enc_err}, "
+                             f"decode {dec_err}")
+    log(f"[timing] PQ index, interleaved: {E} chunk entries, n_max {n_max}: encode kernel "
+        f"{enc_ms:.3f} ms vs plain {enc_plain_ms:.1f} ms; decode kernel {dec_ms:.3f} ms "
+        f"({dec_ms * 1e3 / n_max:.4f} us per step of the longest entry) vs plain "
+        f"{dec_plain_ms:.1f} ms; both == plain == the container's streams")
+
+    # the native host codec over the 1024 lists, against the kernels' streams
+    lists = index.invlists.ids
+    sorted_ids, lengths, prec, perms = roc_lane_table(index.invlists)
+    st, order = RocEncoder.encode(torch.from_numpy(sorted_ids.view(np.int64)).to(cuda),
+                                  torch.from_numpy(lengths).to(cuda),
+                                  torch.from_numpy(prec).to(cuda))
+    t0 = time.perf_counter()
+    native.load_library()
+    t_build = time.perf_counter() - t0
+    threads = native.default_threads()
+    t0 = time.perf_counter()
+    heads, stacks, lens, orders, mt = native.roc_encode_lists(lists, prec)
+    nat_enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    decoded = native.roc_decode_lists(heads, stacks, lens, lengths, prec)
+    nat_dec_ms = (time.perf_counter() - t0) * 1e3
+    head, stack, stack_len, mt_ctr = (x.cpu().numpy() for x in st[:4])
+    order = order.cpu().numpy()
+    kernel_ids = roc.decoder.decode().cpu().numpy()
+    same = (np.array_equal(heads.view(np.int64), head) and np.array_equal(lens, stack_len)
+            and np.array_equal(mt.view(np.int32), mt_ctr)
+            and torch.equal(st.stack, roc.decoder.states.stack))
+    for ln in range(NLIST):
+        n, w = int(lengths[ln]), int(lens[ln])
+        same = (same and np.array_equal(stacks[ln, :w].view(np.int32), stack[ln, :w])
+                and np.array_equal(orders[ln], perms[ln][order[ln, :n]])
+                and np.array_equal(decoded[ln].view(np.int64), kernel_ids[ln, :n]))
+    if not same:
+        raise AssertionError("native host codec: heads, stacks, orders or decoded ids differ "
+                             "from the kernels'")
+    log(f"[timing] native host codec (g++ build {t_build:.1f} s), {NLIST} lists, "
+        f"{index.ntotal} ids, {threads} threads: encode {nat_enc_ms:.1f} ms, decode "
+        f"{nat_dec_ms:.1f} ms (host clock); heads, stacks, MT draws, orders and decoded "
+        f"ids == the kernels'")
+    return {"roc_encode": {"max_abs_err": enc_err, "chunk_entries_ms": enc_ms,
+                           "chunk_entries_plain_ms": enc_plain_ms,
+                           "native_host_ms": nat_enc_ms, "native_threads": threads},
+            "roc_decode": {"max_abs_err": dec_err, "chunk_entries_ms": dec_ms,
+                           "chunk_entries_plain_ms": dec_plain_ms,
+                           "native_host_ms": nat_dec_ms, "native_threads": threads}}
 
 
 def time_graph_kernels(g, roc, blk, nodes, launches):
@@ -604,19 +815,22 @@ def main() -> None:
     log(f"[main] data: {NT} train, {NB} database, {NQ} query vectors of d={D} "
         f"(seed {args.seed}) in {time.perf_counter() - t0:.1f} s on the host")
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
+    pq_index, pq_roc, pq_il, pq_launches = phase_pq(xt, xb, xq, I_bf,
+                                                    int(index.invlists.lengths.max()))
     g, roc_g, blk, graph_launches, nodes = phase_graph(xb, xq, I_bf)
     probes = phase_probes(args.seed)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches)
+    per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il)
     kernels = time_kernels(index, roc, main_launches) + chained + probes
-    # a kernel that both paths run counts its launches in both, and its error
-    # is the larger of its two paths'
+    # a kernel that several paths run counts its launches in each, and its
+    # error is the largest of its paths'
+    by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches}
     for entry in kernels[:2]:
         name_ = entry["name"]
-        entry["launches"] = main_launches[name_] + graph_launches[name_]
-        entry["launches_by_phase"] = {"main": main_launches[name_],
-                                      "graph": graph_launches[name_]}
-        extra = per_node[name_]
-        entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
+        entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items()}
+        entry["launches"] = sum(entry["launches_by_phase"].values())
+        for extra in (per_node[name_], per_chunk[name_]):
+            entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

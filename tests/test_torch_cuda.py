@@ -17,11 +17,15 @@ from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_s
 from vector_db_id_compression_tpu_torch.ops.probes import ProbeDecodeStep, ProbeGather
 from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
 from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+from vector_db_id_compression_tpu_torch.search import ivf
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
 from vector_db_id_compression_tpu_torch.search.nsg import build_nsg
 from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
-from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+from vector_db_id_compression_tpu_torch.store.invlists import (
+    InterleavedRocInvertedLists,
+    RocInvertedLists,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +94,40 @@ def test_roc_ivf_search_on_card(cuda):
     for ln in (0, 17, 63):
         assert torch.equal(roc.get_ids(ln).sort().values.cpu(),
                            torch.from_numpy(np.sort(index.invlists.ids[ln]).view(np.int64)))
+
+
+def test_pq_interleaved_search_on_card(cuda, monkeypatch):
+    """IVF-PQ with the interleaved ROC container on the card, both scans,
+    against the same index on the CPU (the card's index takes the CPU
+    index's parameters and lists)."""
+    rng = np.random.default_rng(6)
+    xb = rng.standard_normal((20000, 32)).astype(np.float32)
+    xq = rng.standard_normal((64, 32)).astype(np.float32)
+    cpu = IndexIVF(32, 16, storage="pq", pq_m=8)
+    cpu.train(xb)
+    cpu.add(xb)
+    card = IndexIVF(32, 16, storage="pq", pq_m=8, device=cuda)
+    card.centroids, card.pq.centroids = cpu.centroids.to(cuda), cpu.pq.centroids.to(cuda)
+    before = (RocEncoder.launches, RocDecoder.launches)
+    il_cpu = InterleavedRocInvertedLists(cpu.invlists)
+    il_card = InterleavedRocInvertedLists(cpu.invlists, device=cuda)
+    assert il_card.compressed_ids_size_in_bytes == il_cpu.compressed_ids_size_in_bytes
+    assert il_card.overhead_in_bytes == il_cpu.overhead_in_bytes > 0
+    for budget in (ivf.PQ_DECODE_BUDGET, 0):
+        monkeypatch.setattr(ivf, "PQ_DECODE_BUDGET", budget)
+        cpu.replace_invlists(il_cpu)
+        card.replace_invlists(il_card)
+        assert card._scan_is_float == (budget > 0)
+        D0, I0 = cpu.search(xq, 10, nprobe=4)
+        D1, I1 = card.search(xq, 10, nprobe=4)
+        torch.testing.assert_close(D1.cpu(), D0, rtol=1e-4, atol=1e-3)
+        assert bool(((I1.cpu() == I0) | torch.isclose(D1.cpu(), D0, rtol=1e-4, atol=1e-3)).all())
+    ids, lens = il_card.decode_lists(torch.arange(16, device=cuda))
+    for ln in range(16):
+        assert torch.equal(ids[ln, : lens[ln]].sort().values.cpu(),
+                           torch.from_numpy(np.sort(cpu.invlists.ids[ln]).view(np.int64)))
+    torch.cuda.synchronize()
+    assert RocEncoder.launches == before[0] + 1 and RocDecoder.launches >= before[1] + 3
 
 
 def make_chained_batch(L, S, n_max, bits, seed):

@@ -38,13 +38,14 @@ def _close(a, b, rtol=RTOL, atol=ATOL):
 def assert_same_results(D_port, I_port, D_ref, I_ref, rtol=RTOL, atol=ATOL):
     """D within tolerance; I equal under the near-tie rule (module doc)."""
     D_port, I_port = np.asarray(D_port), np.asarray(I_port)
+    k = I_ref.shape[1]
     finite = np.isfinite(D_ref)
     np.testing.assert_array_equal(np.isfinite(D_port), finite)
     np.testing.assert_allclose(D_port[finite], D_ref[finite], rtol=rtol, atol=atol)
     for i, j in zip(*np.nonzero(I_port != I_ref)):
         left = j > 0 and _close(D_ref[i, j], D_ref[i, j - 1], rtol, atol)
         # at the last slot, the port's own candidate is the one beyond JAX's k
-        right = _close(D_ref[i, j], D_ref[i, j + 1] if j + 1 < K else D_port[i, j],
+        right = _close(D_ref[i, j], D_ref[i, j + 1] if j + 1 < k else D_port[i, j],
                        rtol, atol)
         assert left or right, f"query {i} slot {j}: label differs without a near tie"
 

@@ -4,8 +4,10 @@ The machine with the card has no jax, and the JAX package's ``__init__``
 imports jax and turns on x64 mode, so no module of the port may import
 either. A subprocess blocks ``jax`` in ``sys.modules``, imports every module
 of the port, builds a tiny ROC-compressed IVF index on the CPU and searches
-it, builds a tiny NSG graph and searches it with its three containers, and
-runs the two probes. The JAX package is imported here only to compare with.
+it, builds a tiny IVF-PQ index and searches it with the interleaved ROC
+container through both PQ scans, runs the host and native ROC codecs, builds
+a tiny NSG graph and searches it with its three containers, and runs the two
+probes. The JAX package is imported here only to compare with.
 """
 
 import ast
@@ -42,6 +44,32 @@ D1, I1 = index.search_defer_id_decoding(xq, 5, nprobe=2)
 assert torch.equal(I0.sort(1).values, I1.sort(1).values)
 assert torch.allclose(D0, D1, rtol=1e-4, atol=1e-3)
 assert int(I1.min()) >= 0 and int(I1.max()) < 600
+
+from vector_db_id_compression_tpu_torch import native
+from vector_db_id_compression_tpu_torch.codecs.roc import roc_decode, roc_encode
+from vector_db_id_compression_tpu_torch.search import ivf
+from vector_db_id_compression_tpu_torch.store.invlists import InterleavedRocInvertedLists
+
+pq = IndexIVF(8, 4, storage="pq", pq_m=2, device="cpu")
+pq.train(xb, niter=5)
+pq.add(xb)
+Dp0, Ip0 = pq.search(xq, 5, nprobe=2)
+il = InterleavedRocInvertedLists(pq.invlists, interleave=3, interleave_min=20)
+assert il.overhead_in_bytes > 0
+pq.replace_invlists(il)
+Dp1, Ip1 = pq.search(xq, 5, nprobe=2)
+ivf.PQ_DECODE_BUDGET = 0
+pq.replace_invlists(il)
+Dp2, Ip2 = pq.search(xq, 5, nprobe=2)
+for Dx, Ix in ((Dp1, Ip1), (Dp2, Ip2)):
+    assert torch.allclose(Dx, Dp0, rtol=1e-4, atol=1e-3)
+    assert ((Ix == Ip0) | torch.isclose(Dx, Dp0, rtol=1e-4, atol=1e-3)).all()
+ids = pq.invlists.ids[0]
+st, order = roc_encode(ids, 10)
+assert (roc_decode(st.clone(), len(ids), 10) == ids[order]).all()
+heads, stacks, lens, orders, mt = native.roc_encode_lists([ids], [10])
+assert int(heads[0]) == st.head and stacks[0, : lens[0]].tolist() == st.stack
+assert (native.roc_decode_lists(heads, stacks, lens, [len(ids)], [10])[0] == ids[order]).all()
 
 from vector_db_id_compression_tpu_torch.ops.probes import ProbeDecodeStep, ProbeGather
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device

@@ -1,2 +1,2 @@
-"""ID codecs: ROC (bits-back rANS) precision rules and the lane-batched torch
-codec."""
+"""ID codecs: ROC (bits-back rANS) precision rules, the host codec, the
+lane-batched torch codec and interleaved ROC."""

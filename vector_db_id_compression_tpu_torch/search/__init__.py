@@ -1,5 +1,5 @@
-"""Search: k-means coarse quantizer, IVF with deferred ID decoding, NSG
-construction and best-first graph search."""
+"""Search: k-means coarse quantizer, product quantizer, IVF with deferred ID
+decoding, NSG construction and best-first graph search."""
 
 import torch
 

@@ -1,2 +1,2 @@
-"""Containers: size buckets, the inverted lists with compressed ids and the
-graph adjacency containers."""
+"""Containers: size buckets, the inverted lists with compressed ids (ROC and
+interleaved ROC) and the graph adjacency containers."""
