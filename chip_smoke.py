@@ -17,11 +17,15 @@ decoded inside the traversal. Phases:
   3. kernels  each ROC kernel against its plain torch version on seeded
               batches: 256 lists (lengths 1..1500), and 64 lanes of 16
               chained slots (lengths 0..32); ids up to 2^20 and 2^32 - 1;
-              bit-equal or the run fails
+              and 3 lists with one of 30,000 ids below 2^40, past both
+              kernels' shared-memory threshold, so that each runs its
+              global-memory layout; bit-equal or the run fails
   4. main     train, add, search uncompressed, swap in the ROC container,
               search again; the ROC search must return the uncompressed
               search's rows (ids are lossless); both kernels must have been
-              launched by that path; then bits/id and phase times
+              launched by that path; then bits/id and phase times, and each
+              search under torch.profiler (wall and device ms, idle share,
+              the kernels with the most device time)
   5. pq       IVF1024,PQ16: train, add, search uncompressed (the decoded-
               reconstruction scan), swap in RocInvertedLists and then
               InterleavedRocInvertedLists and search each, then the LUT scan
@@ -30,7 +34,7 @@ decoded inside the traversal. Phases:
               differ only where D ties: equal codes tie exactly and ROC
               reorders them); every list's ids recovered by the interleaved
               decode; both kernels launched in this phase; then bits/id,
-              recall and times
+              recall and times (profiled as in main)
   6. graph    build_nsg on the card, the two ROC graphs, and the search with
               each of the three containers: identical I and D or the run
               fails; every ROC kernel must have been launched by this phase;
@@ -38,17 +42,30 @@ decoded inside the traversal. Phases:
               the same I on 32 queries; then bits/edge, hops, recall and
               search times
   7. probes   the two decode-step probes against their plain versions
-  8. timing   each kernel beside its plain version at its paths' shapes:
+  8. chain    the chain probe (the codec's serial chain, no rank or select
+              work, one lane on one thread) over the flat index's longest
+              list, against the codec's streams and its plain version: the
+              time of a step of the chain, the floor of a step of both ROC
+              kernels
+  9. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
               entries, and at the graph's (per node and chained), bit-equal
               or the run fails; the native host codec over the PQ index's
-              1024 lists, equal to the kernels' streams or the run fails
+              1024 lists, equal to the kernels' streams or the run fails;
+              then one line per kernel with its time, its bound, its chain
+              bound (the longest lane's steps times the chain probe's step)
+              and its launches per search or build
 
 The line before the last is a JSON object with each kernel's launch count
 (from the phases that drive it, counted from 0 just before each), its error
-against the plain version and its time beside the plain version's; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
-a checkout of the repository, it exits nonzero and prints no result.
+against the plain version, its time beside the plain version's, its bound
+(``bound_ms``: the larger of the bytes it must move over the H100's 3.35
+TB/s and its operations over the 67 T/s scalar rate, from this run's inputs;
+``bound_by`` says which), for the ROC kernels ``chain_bound_ms`` and
+``library_ms`` (null: no single PyTorch call
+decodes or encodes an ROC stream); the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside a checkout of the
+repository, it exits nonzero and prints no result.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -69,6 +86,11 @@ NLIST, K, NPROBE = 1024, 10, 16
 PQ_M = 16
 GRAPH_R, GRAPH_BLOCK = 32, 16
 NQ_HOST = 32  # queries the host-loop search checks the device walk on
+# the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, and float32
+# operations/s outside the tensor cores, the table's scalar rate, for the
+# kernels' integer compares
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -103,6 +125,64 @@ def max_abs_err(got, want) -> float:
             diff = float((g.double() - w.double()).abs().max())
             err = max(err, diff if g.is_floating_point() else max(diff, 1.0))
     return err
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` and does ``ops`` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def order_stat_ops(lens) -> float:
+    """Operations of the order statistics that ROC coding of lists of
+    ``lens`` needs, whatever a kernel's own method: ceil(log2 n) per step of
+    a list of n, as the native host codec's insert-rank treap (decode) and
+    Fenwick select (encode) take (native/roc_native.cpp)."""
+    lens = lens.to(torch.float64)
+    return float((lens * torch.log2(lens.clamp(min=1)).ceil()).sum())
+
+
+def decode_bound(decoder, idx):
+    """Bound of decoding the lanes ``idx`` of ``decoder``: the lanes' heads,
+    stack words, counters, lengths and precisions read once, the ids
+    i64[Q, S, n_max] written once; operations: ``order_stat_ops``."""
+    st = decoder.states
+    lens = decoder.lengths.reshape(st.head.shape[0], -1)[idx].to(torch.int64)
+    Q, S = lens.shape
+    nbytes = (Q * (8 + 4 + 4 + 8 + 4) + Q * S * 8 + 4 * int(st.stack_len[idx].sum())
+              + Q * S * decoder.n_max * 8)
+    return bound(nbytes, order_stat_ops(lens))
+
+
+def encode_bound(lengths, states, n_max: int, with_order: bool):
+    """Bound of encoding lanes of ``lengths`` i32[B] or [B, S]: their ids
+    (8 bytes each), lengths and precisions read once; heads, stack words,
+    counters and the sampling order written once; operations:
+    ``order_stat_ops``."""
+    lens = lengths.reshape(lengths.shape[0], -1).to(torch.int64)
+    B, S = lens.shape
+    nbytes = (8 * int(lens.sum()) + 8 * B * S + B * (8 + 4 + 4 + 4)
+              + 4 * int(states.stack_len.sum()) + (4 * B * n_max if with_order else 0))
+    return bound(nbytes, order_stat_ops(lens))
+
+
+def longest_steps(lengths, idx=None) -> int:
+    """Steps of the longest lane of ``lengths`` i32[L] or [L, S] (the slots
+    of a chained lane in turn), over the lanes ``idx`` or all."""
+    lens = lengths.reshape(lengths.shape[0], -1)
+    lens = lens if idx is None else lens[idx]
+    return int(lens.sum(dim=1).max())
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work, **extra):
+    """One kernel's entry of the JSON line (``work`` = (bound_ms,
+    bound_by))."""
+    return {"name": name, "route": "cuda",
+            "source": f"vector_db_id_compression_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
+            "library_ms": None, **extra}
 
 
 def assert_near_ties(what, D_got, I_got, D_ref, I_ref, rtol, atol):
@@ -231,6 +311,58 @@ def phase_kernels(seed: int):
         f"{int(st_k.stack_len.sum())} stack words, stack_len, mt_ctr), chained decode "
         f"kernel == plain == input ids; max_abs_err 0")
 
+    # a lane past the shared-memory threshold: both kernels' global layout
+    from vector_db_id_compression_tpu_torch.ops import _build
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import encode_layout
+
+    ids, lengths, prec = long_batch(seed)
+    n_max = ids.shape[1]
+    enc_bytes, enc_shared = encode_layout(n_max)
+    st_k, order_k = RocEncoder.encode(ids.to(cuda), lengths.to(cuda), prec.to(cuda))
+    dec = RocDecoder(st_k, lengths.to(cuda), prec.to(cuda), rd.default_pool(n_max, cuda), n_max)
+    sym_bytes, dec_bytes, warps = dec.layout()
+    if enc_shared or warps:
+        raise AssertionError("the long batch did not take both kernels' global layout")
+    ids_k = dec.decode()
+    torch.cuda.synchronize()
+    st_p, order_p = RocEncoder.encode(ids, lengths, prec)
+    for field, got, want in zip(st_k._fields, st_k, st_p):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"ROC encode kernel, global layout: {field} differs")
+    if not torch.equal(order_k.cpu(), order_p):
+        raise AssertionError("ROC encode kernel, global layout: order differs")
+    ids_p = RocDecoder(st_p, lengths, prec, rd.default_pool(n_max), n_max).decode()
+    if not torch.equal(ids_k.cpu(), ids_p):
+        raise AssertionError("ROC decode kernel, global layout: ids differ")
+    for b, n in enumerate(lengths.tolist()):
+        if not torch.equal(ids_p[b, :n].sort().values, ids[b, :n]):
+            raise AssertionError(f"ROC decode, global layout: lane {b} is not its id set")
+    limit = _build.SHARED_BYTES_PER_BLOCK
+    log(f"[kernels] {len(lengths)} lists, lengths {lengths.tolist()}, precision "
+        f"{int(prec.min())}..{int(prec.max())}, past the shared-memory threshold "
+        f"({limit} bytes per block): encode in the global layout ({enc_bytes} bytes a lane, "
+        f"{32 * enc_bytes} per block of 32), decode in the global layout ({dec_bytes} bytes "
+        f"a lane, u{8 * sym_bytes} symbols); encode kernel == plain (head, stack, "
+        f"stack_len, mt_ctr, order), decode kernel == plain == input ids; max_abs_err 0")
+
+
+def long_batch(seed: int):
+    """3 lists, one of 30,000 ids below 2^40 (u64 symbols): past the
+    encode's shared-memory threshold (about 29,000 ids) and the decode's
+    (about 17,000 at this precision)."""
+    from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
+
+    rng = np.random.default_rng(seed + 300)
+    sizes = [30000, 2, 700]
+    ids = np.zeros((len(sizes), max(sizes)), np.uint64)
+    prec = np.zeros(len(sizes), np.int32)
+    for b, n in enumerate(sizes):
+        v = np.sort(rng.choice(2**40 - 1, size=n, replace=False).astype(np.uint64) + 1)
+        ids[b, :n] = v
+        prec[b] = precision_for_max_id_safe(int(v[-1]))
+    return (torch.from_numpy(ids.view(np.int64)), torch.from_numpy(np.array(sizes, np.int32)),
+            torch.from_numpy(prec))
+
 
 def chained_batch(seed: int):
     """64 lanes of 16 chained slots: lengths 0..32 with 0, 1 and every power
@@ -328,22 +460,54 @@ def phase_main(xt, xb, xq):
         f"vs brute force: {recall:.4f}")
     del xb_d, d2
 
-    t_search, t_pos, t_tr, touched = search_times(index, xq)
+    times = {}
+    for name, container in (("uncompressed", index.invlists), ("ROC", roc)):
+        index.replace_invlists(container)
+        times[name] = search_times(index, xq, f"flat {name}")
     log(f"[main] CUDA-event ms: train {t_train:.1f}, add {t_add:.1f}, ROC encode "
-        f"(container build) {t_roc:.1f}; search ({NQ} queries, median of 5) "
-        f"{t_search:.2f} = positional {t_pos:.2f} + translate {t_tr:.2f} "
-        f"({touched} touched lists decoded)")
+        f"(container build) {t_roc:.1f}; search ({NQ} queries, median of 5 after a warm-up) "
+        "= positional + translate: " + "; ".join(
+            f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} touched lists)"
+            for name, t in times.items()))
     return index, roc, launches, I_bf[:, :K]
 
 
-def search_times(index, xq):
+def search_times(index, xq, what: str):
     """(search, positional, translate ms: CUDA-event medians of 5 after a
-    warm-up; lists touched by the translate) for the active container."""
+    warm-up; lists touched by the translate) for the active container; logs
+    its search's profile as ``what``."""
     t_pos = median_ms(lambda: index.search_positional(xq, K, NPROBE))
     _, L = index.search_positional(xq, K, NPROBE)
     t_tr = median_ms(lambda: index._translate(L))
     t_search = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
+    profile_search(index, xq, what)
     return t_search, t_pos, t_tr, int(torch.unique(L[L >= 0] >> 32).numel())
+
+
+def profile_search(index, xq, what: str, reps: int = 3) -> None:
+    """torch.profiler over ``reps`` searches of the active container; logs,
+    per search: wall ms (host clock), device ms (the kernels' self times),
+    the idle share (1 - device / wall) and the three kernels with the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    # device-side events only: the CPU ops that launch them carry their time too
+    times = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    device = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[profile] {what} search (torch.profiler, {reps} searches): wall {wall:.2f} ms, "
+        f"device {device:.2f} ms, idle share {1 - device / wall:.2f}; most device time: "
+        + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top))
 
 
 def phase_pq(xt, xb, xq, I_bf, flat_max_len: int):
@@ -434,7 +598,7 @@ def phase_pq(xt, xb, xq, I_bf, flat_max_len: int):
                                          ("interleaved, LUT scan", il, 0)):
         ivf.PQ_DECODE_BUDGET = scan_budget
         index.replace_invlists(container)
-        times[name] = search_times(index, xq)
+        times[name] = search_times(index, xq, f"PQ {name}")
     ivf.PQ_DECODE_BUDGET = budget
     log(f"[pq] search ms ({NQ} queries, median of 5 after a warm-up) = positional + "
         "translate: " + "; ".join(f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} "
@@ -473,17 +637,21 @@ def phase_graph(xb, xq, I_bf):
     t_nsg = time.perf_counter() - t0
     edges = int(g.degrees.sum())
     t_roc, roc = cuda_ms(lambda: RocGraph(g))
+    before = RocEncoder.chained_launches
     t_blk, blk = cuda_ms(lambda: RocBlockGraph(g, block=GRAPH_BLOCK))
+    per_unit = {"roc_encode_chained": RocEncoder.chained_launches - before}
     results, capped = {}, {}
     for name, container in (("Graph", g), ("RocGraph", roc), ("RocBlockGraph", blk)):
-        before = RocDecoder.launches
+        before = RocDecoder.launches, RocDecoder.chained_launches
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             results[name] = search_graph_device(container, xb_d, xq_d, k=K, entry=medoid)
         torch.cuda.synchronize()
         capped[name] = any("max_iters" in str(w.message) for w in caught)
         if name == "RocGraph":
-            hops = RocDecoder.launches - before  # one decode launch per hop
+            hops = RocDecoder.launches - before[0]  # one decode launch per hop
+        if name == "RocBlockGraph":
+            per_unit["roc_decode_chained"] = RocDecoder.chained_launches - before[1]
     launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches,
                 "roc_encode_chained": RocEncoder.chained_launches,
                 "roc_decode_chained": RocDecoder.chained_launches}
@@ -529,7 +697,8 @@ def phase_graph(xb, xq, I_bf):
              for name, c in (("Graph", g), ("RocGraph", roc), ("RocBlockGraph", blk))}
     log("[graph] search ms (CUDA events, median of 5 after a warm-up): "
         + ", ".join(f"{name} {t:.2f}" for name, t in times.items()))
-    return g, roc, blk, launches, I0[:, 0]
+    per_unit["roc_decode"] = hops
+    return g, roc, blk, launches, I0[:, 0], per_unit
 
 
 def phase_probes(seed: int):
@@ -568,12 +737,58 @@ def phase_probes(seed: int):
         log(f"[probes] {name}: {STEPS} steps, kernel == plain (on the CPU and on the card), "
             f"kernel {ms:.4f} ms ({ms * 1e3 / STEPS:.4f} us/step; CUDA-event median of 5 "
             f"after a warm-up) vs plain {plain_ms:.1f} ms (one run on the card)")
-        entries.append({"name": name, "route": "cuda",
-                        "source": f"vector_db_id_compression_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "us_per_step": ms * 1e3 / STEPS})
+        B = cpu_args[0].shape[0 if name == "probe_gather" else 1]
+        # K3: each row's window read, one gather per step; K4: buf read, the
+        # emits written, the ranks' order statistics
+        work = (bound(win.numel() * 4 + 8 * B, STEPS * B) if name == "probe_gather" else
+                bound(buf.numel() * 4 + 4 * B + STEPS * B * 4,
+                      order_stat_ops(torch.full((B,), STEPS))))
+        entries.append(kernel_entry(name, src, replaces, launches[name], err, ms, plain_ms,
+                                    work, us_per_step=ms * 1e3 / STEPS))
     return entries
+
+
+def phase_chain(index, roc):
+    """The chain probe over the flat index's longest list, one lane on one
+    thread: its decode chain given the ranks the decode computes, its encode
+    chain given the ids in sampling order, each held against the codec's own
+    streams and against its plain version. Returns (decode, encode) us per
+    step: the floor of a step of either ROC kernel, for the chain half of
+    their bounds."""
+    from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
+    from vector_db_id_compression_tpu_torch.ops.probes import ProbeChain, decode_ranks
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+
+    cuda = torch.device("cuda")
+    lengths = roc.decoder.lengths
+    b = int(torch.argmax(lengths))
+    n = int(lengths[b])
+    ids = torch.from_numpy(np.sort(index.invlists.ids[b]).view(np.int64))[None].to(cuda)
+    len_t, prec_t = lengths[b:b + 1], roc.decoder.precision[b:b + 1]
+    st, order = RocEncoder.encode(ids, len_t, prec_t)
+    in_order = ids.gather(1, order.long())
+    enc_ms = median_ms(lambda: ProbeChain.encode(in_order, len_t, prec_t))
+    st_c = ProbeChain.encode(in_order, len_t, prec_t)
+    st_p = ProbeChain.encode(in_order.cpu(), len_t.cpu(), prec_t.cpu())
+    enc_err = max(max_abs_err(tuple(st_c), tuple(st)), max_abs_err(tuple(st_c), tuple(st_p)))
+
+    decoded = roc.decoder.decode_lanes(torch.tensor([b], device=cuda))[:, :n]
+    ranks, pool = decode_ranks(decoded, len_t), rd.default_pool(n, cuda)
+    dec_ms = median_ms(lambda: ProbeChain.decode(st, len_t, prec_t, ranks, pool))
+    syms = ProbeChain.decode(st, len_t, prec_t, ranks, pool)
+    plain = ProbeChain.decode(rd.RocStates(*(t.cpu() for t in st)), len_t.cpu(), prec_t.cpu(),
+                              ranks.cpu(), pool.cpu())
+    dec_err = max(max_abs_err(syms, decoded.flip(1)), max_abs_err(syms, plain))
+    if enc_err or dec_err:
+        raise AssertionError(f"chain probe vs the codec and its plain version: encode "
+                             f"{enc_err}, decode {dec_err}")
+    dec_us, enc_us = dec_ms * 1e3 / n, enc_ms * 1e3 / n
+    log(f"[chain] chain probe over the longest list ({n} ids, precision {int(prec_t)}), one "
+        f"lane on one thread, no rank or select work: decode chain {dec_ms:.4f} ms "
+        f"({dec_us:.4f} us/step), encode chain {enc_ms:.4f} ms ({enc_us:.4f} us/step) "
+        f"(CUDA-event medians of 5 after a warm-up, launch and staging included); "
+        f"== the codec's streams and the plain version, max_abs_err 0")
+    return dec_us, enc_us
 
 
 def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
@@ -605,10 +820,16 @@ def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
     return enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err
 
 
-def time_kernels(index, roc, launches):
+def time_kernels(index, roc, launches, xq, chain):
     """Each kernel beside its plain version, on the card, at the main path's
-    shapes: encode of every list of the index, decode of every list."""
-    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+    shapes: encode of every list of the index, decode of every list, and
+    the decode of the lists one search's translate touches; then each
+    kernel's launches in one search (decode) or one container build
+    (encode). ``chain``: the chain probe's (decode, encode) us per step."""
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.store.invlists import (RocInvertedLists,
+                                                                   roc_lane_table)
 
     sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
     enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err = lane_kernels_vs_plain(
@@ -618,30 +839,49 @@ def time_kernels(index, roc, launches):
                              f"{enc_err}, decode {dec_err}")
     B, n_max = sorted_ids.shape
     max_len = int(lengths.max())
+    _, L = index.search_positional(xq, K, NPROBE)
+    touched = torch.unique(L[L >= 0] >> 32)
+    touched_ms = median_ms(lambda: roc.decoder.decode_lanes(touched))
+    RocDecoder.launches = 0
+    index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    torch.cuda.synchronize()
+    per_search = RocDecoder.launches
+    RocEncoder.launches = 0
+    RocInvertedLists(index.invlists, device="cuda")
+    per_build = RocEncoder.launches
+    dec = roc.decoder
+    dec_us, enc_us = chain
+    touched_steps = longest_steps(dec.lengths, touched)
     log(f"[timing] {B} lists, n_max {n_max}: encode kernel {enc_ms:.3f} ms vs plain "
         f"{enc_plain_ms:.1f} ms; decode kernel {dec_ms:.3f} ms ({dec_ms * 1e3 / max_len:.4f} "
         f"us per step of the longest list, {max_len} steps) vs plain {dec_plain_ms:.1f} "
-        f"ms (kernel: CUDA-event median of 3 after a warm-up; plain: one run on the card)")
+        f"ms; decode of the {touched.numel()} lists one search touches {touched_ms:.3f} ms "
+        f"(kernel: CUDA-event median after a warm-up; plain: one run on the card)")
+    all_lanes = torch.arange(B, device="cuda")
     return [
-        {"name": "roc_encode", "route": "cuda",
-         "source": "vector_db_id_compression_tpu_torch/csrc/roc_encode.cu",
-         "replaces": "vector_db_id_compression_tpu/ops/roc_encode_pallas.py:75",
-         "launches": launches["roc_encode"], "max_abs_err": enc_err,
-         "ms": enc_ms, "plain_ms": enc_plain_ms},
-        {"name": "roc_decode", "route": "cuda",
-         "source": "vector_db_id_compression_tpu_torch/csrc/roc_decode.cu",
-         "replaces": "vector_db_id_compression_tpu/ops/roc_pallas.py:93",
-         "launches": launches["roc_decode"], "max_abs_err": dec_err,
-         "ms": dec_ms, "plain_ms": dec_plain_ms},
+        kernel_entry("roc_encode", "roc_encode.cu",
+                     "vector_db_id_compression_tpu/ops/roc_encode_pallas.py:75",
+                     launches["roc_encode"], enc_err, enc_ms, enc_plain_ms,
+                     encode_bound(dec.lengths, dec.states, n_max, with_order=True),
+                     launches_per_build=per_build, chain_step_us=enc_us,
+                     chain_bound_ms=max_len * enc_us / 1e3),
+        kernel_entry("roc_decode", "roc_decode.cu",
+                     "vector_db_id_compression_tpu/ops/roc_pallas.py:93",
+                     launches["roc_decode"], dec_err, dec_ms, dec_plain_ms,
+                     decode_bound(dec, all_lanes), launches_per_search=per_search,
+                     touched_lists=touched.numel(), touched_ms=touched_ms,
+                     touched_bound_ms=decode_bound(dec, touched)[0], chain_step_us=dec_us,
+                     chain_bound_ms=max_len * dec_us / 1e3,
+                     touched_chain_bound_ms=touched_steps * dec_us / 1e3),
     ]
 
 
-def time_pq_kernels(index, roc, il):
+def time_pq_kernels(index, roc, il, chain):
     """Both ROC kernels beside their plain versions over every chunk entry
     of the PQ index's interleaved container (held also against the
     container's own streams), and the native host codec over the index's
-    1024 lists, held against the kernels' streams. Returns the numbers by
-    kernel."""
+    1024 lists, held against the kernels' streams. ``chain``: the chain
+    probe's (decode, encode) us per step. Returns the numbers by kernel."""
     from vector_db_id_compression_tpu_torch import native
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.store.invlists import (
@@ -694,21 +934,26 @@ def time_pq_kernels(index, roc, il):
         f"{index.ntotal} ids, {threads} threads: encode {nat_enc_ms:.1f} ms, decode "
         f"{nat_dec_ms:.1f} ms (host clock); heads, stacks, MT draws, orders and decoded "
         f"ids == the kernels'")
+    steps = int(t.lengths.max())
     return {"roc_encode": {"max_abs_err": enc_err, "chunk_entries_ms": enc_ms,
                            "chunk_entries_plain_ms": enc_plain_ms,
+                           "chunk_entries_chain_bound_ms": steps * chain[1] / 1e3,
                            "native_host_ms": nat_enc_ms, "native_threads": threads},
             "roc_decode": {"max_abs_err": dec_err, "chunk_entries_ms": dec_ms,
                            "chunk_entries_plain_ms": dec_plain_ms,
+                           "chunk_entries_chain_bound_ms": steps * chain[0] / 1e3,
                            "native_host_ms": nat_dec_ms, "native_threads": threads}}
 
 
-def time_graph_kernels(g, roc, blk, nodes, launches):
+def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain):
     """Both ROC kernels beside their plain versions at the graph path's
     shapes: the chained decode of one fetch (the block of one node per query)
     and of all 62,500 blocks, the chained encode of every block, the per-node
     encode of every node and the per-node decode of one fetch. Returns (the
     per-node kernels' graph-shape numbers by kernel, the chained kernels'
-    JSON entries)."""
+    JSON entries). ``per_unit``: the chained kernels' launches per graph
+    search (decode) and per container build (encode); ``chain``: the chain
+    probe's (decode, encode) us per step."""
     from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.store.graph import neighbour_table
@@ -767,7 +1012,8 @@ def time_graph_kernels(g, roc, blk, nodes, launches):
     if node_enc_err or lane_err:
         raise AssertionError(f"per-node kernels vs plain at the graph's shapes: encode "
                              f"{node_enc_err}, decode {lane_err}")
-    steps = int(degs[blocks].sum(dim=1).max())
+    dec_us, enc_us = chain
+    steps = longest_steps(degs, blocks)
     log(f"[timing] graph, {n_blocks} blocks of {GRAPH_BLOCK} nodes, K {Kg}: chained encode "
         f"kernel {enc_ms:.3f} ms vs plain {enc_plain_ms:.1f} ms; chained decode of one "
         f"fetch ({blocks.numel()} blocks, {fetch_ms * 1e3 / steps:.4f} us per step of the "
@@ -780,21 +1026,29 @@ def time_graph_kernels(g, roc, blk, nodes, launches):
         f"fetch ({nodes.numel()} lanes) kernel {lane_ms:.3f} ms vs plain "
         f"{lane_plain_ms:.1f} ms; both == plain == the container's streams")
     per_node = {"roc_encode": {"max_abs_err": node_enc_err, "graph_ms": node_enc_ms,
-                               "graph_plain_ms": node_enc_plain_ms},
+                               "graph_plain_ms": node_enc_plain_ms,
+                               "graph_chain_bound_ms": longest_steps(degs_n) * enc_us / 1e3},
                 "roc_decode": {"max_abs_err": lane_err, "graph_fetch_ms": lane_ms,
-                               "graph_fetch_plain_ms": lane_plain_ms}}
+                               "graph_fetch_plain_ms": lane_plain_ms,
+                               "graph_fetch_chain_bound_ms":
+                                   longest_steps(degs_n, nodes) * dec_us / 1e3}}
     return per_node, [
-        {"name": "roc_encode_chained", "route": "cuda",
-         "source": "vector_db_id_compression_tpu_torch/csrc/roc_encode.cu",
-         "replaces": "vector_db_id_compression_tpu/codecs/roc_device.py:341",
-         "launches": launches["roc_encode_chained"], "max_abs_err": enc_err,
-         "ms": enc_ms, "plain_ms": enc_plain_ms},
-        {"name": "roc_decode_chained", "route": "cuda",
-         "source": "vector_db_id_compression_tpu_torch/csrc/roc_decode.cu",
-         "replaces": "vector_db_id_compression_tpu/ops/roc_pallas.py:376",
-         "launches": launches["roc_decode_chained"], "max_abs_err": dec_err,
-         "ms": fetch_ms, "plain_ms": fetch_plain_ms,
-         "all_blocks_ms": all_ms, "all_blocks_plain_ms": all_plain_ms},
+        kernel_entry("roc_encode_chained", "roc_encode.cu",
+                     "vector_db_id_compression_tpu/codecs/roc_device.py:341",
+                     launches["roc_encode_chained"], enc_err, enc_ms, enc_plain_ms,
+                     encode_bound(degs, st_k, Kg, with_order=False),
+                     launches_per_build=per_unit["roc_encode_chained"], chain_step_us=enc_us,
+                     chain_bound_ms=longest_steps(degs) * enc_us / 1e3),
+        kernel_entry("roc_decode_chained", "roc_decode.cu",
+                     "vector_db_id_compression_tpu/ops/roc_pallas.py:376",
+                     launches["roc_decode_chained"], dec_err, fetch_ms, fetch_plain_ms,
+                     decode_bound(dec, blocks),
+                     launches_per_search=per_unit["roc_decode_chained"],
+                     all_blocks_ms=all_ms, all_blocks_plain_ms=all_plain_ms,
+                     all_blocks_bound_ms=decode_bound(
+                         dec, torch.arange(n_blocks, device=g.device))[0],
+                     chain_step_us=dec_us, chain_bound_ms=steps * dec_us / 1e3,
+                     all_blocks_chain_bound_ms=longest_steps(degs) * dec_us / 1e3),
     ]
 
 
@@ -817,11 +1071,13 @@ def main() -> None:
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
     pq_index, pq_roc, pq_il, pq_launches = phase_pq(xt, xb, xq, I_bf,
                                                     int(index.invlists.lengths.max()))
-    g, roc_g, blk, graph_launches, nodes = phase_graph(xb, xq, I_bf)
+    g, roc_g, blk, graph_launches, nodes, per_unit = phase_graph(xb, xq, I_bf)
     probes = phase_probes(args.seed)
-    per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches)
-    per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il)
-    kernels = time_kernels(index, roc, main_launches) + chained + probes
+    chain = phase_chain(index, roc)
+    per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
+                                           chain)
+    per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il, chain)
+    kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes
     # a kernel that several paths run counts its launches in each, and its
     # error is the largest of its paths'
     by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches}
@@ -831,6 +1087,18 @@ def main() -> None:
         entry["launches"] = sum(entry["launches_by_phase"].values())
         for extra in (per_node[name_], per_chunk[name_]):
             entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
+    entries = {e["name"]: e for e in kernels}
+    entries["roc_decode"]["graph_launches_per_search"] = per_unit["roc_decode"]
+    for e in kernels:
+        per = ("per search", e["launches_per_search"]) if "launches_per_search" in e else (
+            ("per build", e["launches_per_build"]) if "launches_per_build" in e else
+            ("probe", "off the main path"))
+        chain_bound = (f", chain bound {e['chain_bound_ms']:.4f} ms "
+                       f"({e['ms'] / e['chain_bound_ms']:.2f}x)" if "chain_bound_ms" in e else "")
+        log(f"[timing] {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.5f} ms by "
+            f"{e['bound_by']} ({e['ms'] / e['bound_ms']:.0f}x the bound){chain_bound}, plain "
+            f"{e['plain_ms']:.1f} ms, no single PyTorch call; launches {e['launches']} in the "
+            f"paths' runs, {per[1]} {per[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -14,7 +14,12 @@ import torch
 
 from vector_db_id_compression_tpu_torch.codecs import roc_device as td
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
-from vector_db_id_compression_tpu_torch.ops.probes import ProbeDecodeStep, ProbeGather
+from vector_db_id_compression_tpu_torch.ops.probes import (
+    ProbeChain,
+    ProbeDecodeStep,
+    ProbeGather,
+    decode_ranks,
+)
 from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
 from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
 from vector_db_id_compression_tpu_torch.search import ivf
@@ -78,6 +83,54 @@ def test_kernels_match_plain(cuda, sizes, bits):
     assert RocDecoder.launches == before[1] + 3
 
 
+@pytest.mark.parametrize("layout", ["shared", "global"])
+@pytest.mark.parametrize("sizes,bits", [
+    ([1, 2, 64, 2100, 1000, 700, 200], [20, 20, 20, 20, 24, 12, 8]),
+    ([3000, 40, 1], [40, 40, 40]),
+])
+def test_kernel_layouts_match_plain(cuda, monkeypatch, layout, sizes, bits):
+    """Both kernels in both layouts, u32 and u64 symbols: the global one is
+    forced by a limit of 1 KB of shared memory per block."""
+    from vector_db_id_compression_tpu_torch.ops import _build
+
+    if layout == "global":
+        monkeypatch.setattr(_build, "SHARED_BYTES_PER_BLOCK", 1024)
+    ids, lengths, prec = make_batch(sizes, bits, seed=7)
+    st_k, order_k = RocEncoder.encode(ids.to(cuda), lengths.to(cuda), prec.to(cuda))
+    st_p, order_p = RocEncoder.encode(ids, lengths, prec)
+    for got, want in zip(st_k, st_p):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(order_k.cpu(), order_p)
+    n_max = ids.shape[1]
+    dec_k = RocDecoder(st_k, lengths.to(cuda), prec.to(cuda),
+                       td.default_pool(n_max, cuda), n_max)
+    dec_p = RocDecoder(st_p, lengths, prec, td.default_pool(n_max), n_max)
+    assert torch.equal(dec_k.decode().cpu(), dec_p.decode())
+
+
+def test_decode_lanes_unsorted_with_repeats(cuda):
+    """decode_lanes over lanes of mixed lengths in no order, some repeated:
+    each lane's ids land in its own row of the output."""
+    sizes = [5, 900, 1, 300, 2000, 64, 7]
+    ids, lengths, prec = make_batch(sizes, [20] * len(sizes), seed=9)
+    st, _ = RocEncoder.encode(ids.to(cuda), lengths.to(cuda), prec.to(cuda))
+    n_max = ids.shape[1]
+    dec_k = RocDecoder(st, lengths.to(cuda), prec.to(cuda), td.default_pool(n_max, cuda),
+                       n_max)
+    full = dec_k.decode().cpu()
+    for b, n in enumerate(sizes):
+        assert torch.equal(full[b, :n].sort().values, ids[b, :n])
+    lanes = torch.tensor([2, 4, 0, 4, 6, 1, 2, 5, 3, 4])
+    got = dec_k.decode_lanes(lanes.to(cuda)).cpu()
+    assert torch.equal(got, full[lanes])
+    chained_ids, c_len, c_prec = make_chained_batch(6, 3, 40, 20, seed=2)
+    st_c = RocEncoder.encode_chained(chained_ids.to(cuda), c_len.to(cuda), c_prec.to(cuda))
+    dec_c = RocDecoder(st_c, c_len.to(cuda), c_prec.to(cuda),
+                       td.default_pool(3 * 40, cuda), 40)
+    lanes = torch.tensor([5, 0, 5, 3, 1, 1])
+    assert torch.equal(dec_c.decode_lanes(lanes.to(cuda)).cpu(), dec_c.decode().cpu()[lanes])
+
+
 def test_roc_ivf_search_on_card(cuda):
     rng = np.random.default_rng(5)
     xb = rng.standard_normal((20000, 32)).astype(np.float32)
@@ -103,13 +156,13 @@ def test_pq_interleaved_search_on_card(cuda, monkeypatch):
     rng = np.random.default_rng(6)
     xb = rng.standard_normal((20000, 32)).astype(np.float32)
     xq = rng.standard_normal((64, 32)).astype(np.float32)
-    cpu = IndexIVF(32, 16, storage="pq", pq_m=8)
+    cpu = IndexIVF(32, 16, storage="pq", pq_m=8, device="cpu")
     cpu.train(xb)
     cpu.add(xb)
     card = IndexIVF(32, 16, storage="pq", pq_m=8, device=cuda)
     card.centroids, card.pq.centroids = cpu.centroids.to(cuda), cpu.pq.centroids.to(cuda)
     before = (RocEncoder.launches, RocDecoder.launches)
-    il_cpu = InterleavedRocInvertedLists(cpu.invlists)
+    il_cpu = InterleavedRocInvertedLists(cpu.invlists, device="cpu")
     il_card = InterleavedRocInvertedLists(cpu.invlists, device=cuda)
     assert il_card.compressed_ids_size_in_bytes == il_cpu.compressed_ids_size_in_bytes
     assert il_card.overhead_in_bytes == il_cpu.overhead_in_bytes > 0
@@ -211,6 +264,28 @@ def test_probes_match_plain(cuda, capp, steps):
     assert (ProbeGather.launches, ProbeDecodeStep.launches) == (before[0] + 1, before[1] + 1)
 
 
+def test_chain_probe_matches_plain(cuda):
+    """The chain probe on the card, given the decode's ranks and the
+    encode's sampling order, against its plain versions and the codec."""
+    ids, lengths, prec = make_batch([1, 700, 2127, 40], [20, 20, 20, 32], seed=4)
+    st, order = RocEncoder.encode(ids, lengths, prec)
+    in_order = ids.gather(1, order.clamp(min=0).long())
+    before = ProbeChain.launches
+    st_k = ProbeChain.encode(in_order.to(cuda), lengths.to(cuda), prec.to(cuda))
+    for got, want in zip(st_k, st):
+        assert torch.equal(got.cpu(), want)
+    n_max = ids.shape[1]
+    ref = RocDecoder(st, lengths, prec, td.default_pool(n_max), n_max).decode()
+    ranks = decode_ranks(ref, lengths)
+    want = ProbeChain.decode(st, lengths, prec, ranks, td.default_pool(n_max))
+    got = ProbeChain.decode(td.RocStates(*(t.to(cuda) for t in st)), lengths.to(cuda),
+                            prec.to(cuda), ranks.to(cuda), td.default_pool(n_max, cuda))
+    assert torch.equal(got.cpu(), want)
+    for b, n in enumerate(lengths.tolist()):
+        assert torch.equal(want[b, :n], ref[b, :n].flip(0))
+    assert ProbeChain.launches == before + 2
+
+
 def test_graph_search_on_card(cuda):
     """NSG on the card; the dense, per-node ROC and chained ROC graphs give
     identical results, through the decode kernels."""
@@ -233,3 +308,16 @@ def test_graph_search_on_card(cuda):
         nb, c = container.get_neighbors_batch(nodes)
         assert torch.equal(c, cnt)
         assert torch.equal(nb.sort(dim=1).values, dense.sort(dim=1).values)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """Called without ``device``, the entry points take the card."""
+    rng = np.random.default_rng(8)
+    xb = rng.standard_normal((2000, 16)).astype(np.float32)
+    index = IndexIVF(16, 8)
+    index.train(xb)
+    index.add(xb)
+    assert index.device.type == "cuda" and index.centroids.device.type == "cuda"
+    assert RocInvertedLists(index.invlists).decoder.device.type == "cuda"
+    g, _ = build_nsg(xb[:500], R=8)
+    assert g.device.type == "cuda"

@@ -1,0 +1,79 @@
+"""The port's entry points run on the card unless the caller says otherwise.
+
+Called without ``device``, each entry point takes the card: on a machine
+without one it raises instead of carrying on on the CPU. With
+``device="cpu"`` it runs on the CPU, and ``build_nsg`` and ``Graph`` keep a
+tensor's own device. The tests that need a machine without a card skip on
+one with a card.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
+from vector_db_id_compression_tpu.search.ivf import save_index
+from vector_db_id_compression_tpu_torch.codecs.roc_interleaved import interleaved_encode
+from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index
+from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
+from vector_db_id_compression_tpu_torch.search.nsg import build_knn_graph, build_nsg
+from vector_db_id_compression_tpu_torch.search.pq import ProductQuantizer
+from vector_db_id_compression_tpu_torch.store.graph import Graph
+from vector_db_id_compression_tpu_torch.store.invlists import (
+    InterleavedRocInvertedLists,
+    RocInvertedLists,
+)
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """A few vectors, a JAX index saved as .npz, and its lists loaded on the
+    CPU."""
+    rng = np.random.default_rng(4)
+    xb = rng.standard_normal((200, 8)).astype(np.float32)
+    jidx = JaxIndexIVF(8, 4, storage="flat")
+    jidx.train(xb)
+    jidx.add(xb)
+    path = tmp_path_factory.mktemp("default_device") / "index.npz"
+    save_index(path, jidx)
+    return SimpleNamespace(xb=xb, path=path, il=load_index(path, device="cpu").invlists)
+
+
+# each entry point → the device its result lives on, given the keyword
+# arguments (none: the default)
+ENTRY_POINTS = {
+    "IndexIVF": lambda s, **kw: IndexIVF(8, 8, **kw).device,
+    "IndexIVF-pq": lambda s, **kw: IndexIVF(8, 8, storage="pq", pq_m=2, **kw).pq.device,
+    "load_index": lambda s, **kw: load_index(s.path, **kw).centroids.device,
+    "ProductQuantizer": lambda s, **kw: ProductQuantizer(8, 2, **kw).device,
+    "train_kmeans": lambda s, **kw: train_kmeans(s.xb, 4, niter=1, **kw).device,
+    "RocInvertedLists": lambda s, **kw: RocInvertedLists(s.il, **kw).decoder.device,
+    "InterleavedRocInvertedLists":
+        lambda s, **kw: InterleavedRocInvertedLists(s.il, **kw).decoder.device,
+    "interleaved_encode": lambda s, **kw: interleaved_encode(
+        np.arange(1, 60, dtype=np.uint64), 3, **kw)[0].states.head.device,
+    "build_nsg": lambda s, **kw: build_nsg(s.xb, R=8, **kw)[0].device,
+    "Graph": lambda s, **kw: Graph(np.full((4, 3), -1, np.int32), **kw).device,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_device_raises_without_card(small, name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is available")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](small)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_runs_on_the_cpu_when_asked(small, name):
+    assert ENTRY_POINTS[name](small, device="cpu") == torch.device("cpu")
+
+
+def test_graph_entry_points_keep_a_tensors_device(small):
+    xb = torch.from_numpy(small.xb)
+    assert build_nsg(xb, R=8)[0].device == xb.device
+    assert build_knn_graph(xb, 4).device == xb.device
+    assert Graph(torch.full((4, 3), -1, dtype=torch.int32)).device == xb.device

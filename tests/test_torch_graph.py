@@ -212,7 +212,7 @@ def setup():
     xq = rng.normal(size=(NQ, D)).astype(np.float32)
     jg, medoid = jnsg.build_nsg(xb, R=R)
     D_h, I_h, _ = jnsg.search_graph(jg, xb, xq, K, entry=medoid)
-    return xb, xq, jg, medoid, D_h, I_h, Graph(jg.adjacency)
+    return xb, xq, jg, medoid, D_h, I_h, Graph(jg.adjacency, device="cpu")
 
 
 def _roc_block4(graph):
@@ -268,7 +268,7 @@ def test_duplicate_neighbour_raises_in_both(setup, name):
     with pytest.raises(ValueError, match="duplicate neighbor ids in adjacency row 3"):
         make(jgraph.Graph(adj))
     with pytest.raises(ValueError, match="duplicate neighbor ids in adjacency row 3"):
-        make(Graph(adj))
+        make(Graph(adj, device="cpu"))
 
 
 # ------------------------------------------------------------ search
@@ -343,7 +343,7 @@ def test_max_iters_cap_warns_and_keeps_the_entry_pool(setup):
 
 def test_build_nsg_matches_jax(setup):
     xb, _, jg, medoid, _, _, _ = setup
-    g, m = nsg.build_nsg(xb, R=R)
+    g, m = nsg.build_nsg(xb, R=R, device="cpu")
     assert m == medoid
     knn = min(max(2 * R, 32), N - 1)
     d2 = ((xb[:, None, :].astype(np.float64) - xb[None]) ** 2).sum(-1)
@@ -358,8 +358,8 @@ def test_build_nsg_matches_jax(setup):
 
 def test_build_nsg_does_not_depend_on_block(setup):
     xb = setup[0]
-    g, m = nsg.build_nsg(xb, R=R)
-    g_small, m_small = nsg.build_nsg(xb, R=R, block=37)
+    g, m = nsg.build_nsg(xb, R=R, device="cpu")
+    g_small, m_small = nsg.build_nsg(xb, R=R, block=37, device="cpu")
     assert m == m_small
     assert torch.equal(g.adjacency, g_small.adjacency)
 

@@ -52,7 +52,7 @@ def _assert_lane_equal(states, lane, ref_states, ref_lane):
 def test_interleaved_encode_matches_jax(S):
     rng = np.random.default_rng(S)
     ids = _distinct(rng, 500, 16)
-    env, order = tri.interleaved_encode(ids, S)
+    env, order = tri.interleaved_encode(ids, S, device="cpu")
     ref, ref_order = jri.interleaved_encode(ids, S)
     for s in range(S):
         _assert_lane_equal(env.states, s, ref.states, s)
@@ -72,7 +72,7 @@ def test_s1_lane_is_the_single_stream():
     rng = np.random.default_rng(10)
     ids = _distinct(rng, 300, 14)
     ids[np.argmin(ids)] = 0  # lo == 0: rebasing is a no-op
-    env, _ = tri.interleaved_encode(ids, 1)
+    env, _ = tri.interleaved_encode(ids, 1, device="cpu")
     st, _ = roc_encode(ids, precision_for_max_id_safe(int(ids.max())))
     assert int(env.states.head[0]) == st.head
     n = int(env.states.stack_len[0])
@@ -83,9 +83,9 @@ def test_s1_lane_is_the_single_stream():
 
 def test_interleaved_encode_rejects_bad_input():
     with pytest.raises(ValueError):
-        tri.interleaved_encode(np.arange(3, dtype=np.uint64), 4)
+        tri.interleaved_encode(np.arange(3, dtype=np.uint64), 4, device="cpu")
     with pytest.raises(ValueError):
-        tri.interleaved_encode(np.array([1 << 63], dtype=np.uint64), 1)
+        tri.interleaved_encode(np.array([1 << 63], dtype=np.uint64), 1, device="cpu")
 
 
 # ------------------------------------------------------------------ container
@@ -132,7 +132,7 @@ def pair(request):
     make, kw = CONTAINERS[request.param]
     jil, til = make(jinv), make(tinv)
     return (jinv.InterleavedRocInvertedLists(jil, **kw),
-            tinv.InterleavedRocInvertedLists(til, **kw), til)
+            tinv.InterleavedRocInvertedLists(til, **kw, device="cpu"), til)
 
 
 def test_container_streams_match_jax(pair):
@@ -193,9 +193,9 @@ def test_container_decode_select_matches_jax(pair):
 def test_short_lists_stay_single_stream():
     til, jil = make_il(tinv, nlist=8, ntotal=400), make_il(jinv, nlist=8, ntotal=400)
     for kw in ({}, dict(interleave=4, interleave_min=4096)):
-        c = tinv.InterleavedRocInvertedLists(til, **kw)
+        c = tinv.InterleavedRocInvertedLists(til, **kw, device="cpu")
         assert (c.n_lanes == 1).all() and c.overhead_in_bytes == 0
-        roc = tinv.RocInvertedLists(til)
+        roc = tinv.RocInvertedLists(til, device="cpu")
         assert c.compressed_ids_size_in_bytes == roc.compressed_ids_size_in_bytes
         assert (c.compressed_ids_size_in_bytes
                 == jinv.InterleavedRocInvertedLists(jil, **kw).compressed_ids_size_in_bytes)
@@ -205,10 +205,10 @@ def test_short_lists_stay_single_stream():
 
 def test_auto_policy_lane_counts():
     til = make_il(tinv, nlist=5, ntotal=4000)
-    c = tinv.InterleavedRocInvertedLists(til)
+    c = tinv.InterleavedRocInvertedLists(til, device="cpu")
     t = c.AUTO_CHUNK_TARGET
     assert c.interleave == "auto" and t == 512
     for ln, n in enumerate(til.lengths):
         assert c.n_lanes[ln] == (-(-n // t) if n > (3 * t) // 2 else 1)
     with pytest.raises(ValueError):
-        tinv.InterleavedRocInvertedLists(til, interleave=0)
+        tinv.InterleavedRocInvertedLists(til, interleave=0, device="cpu")

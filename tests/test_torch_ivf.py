@@ -225,7 +225,7 @@ def test_train_kmeans_reduces_inertia(data):
     def inertia(c):
         return float(((x - c[assign(x, c)]) ** 2).sum())
 
-    one = train_kmeans(xb, NLIST, niter=1)
-    twenty = train_kmeans(xb, NLIST, niter=20)
+    one = train_kmeans(xb, NLIST, niter=1, device="cpu")
+    twenty = train_kmeans(xb, NLIST, niter=20, device="cpu")
     assert twenty.shape == (NLIST, D) and bool(torch.isfinite(twenty).all())
     assert inertia(twenty) <= inertia(one)

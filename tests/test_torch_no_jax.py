@@ -54,7 +54,8 @@ pq = IndexIVF(8, 4, storage="pq", pq_m=2, device="cpu")
 pq.train(xb, niter=5)
 pq.add(xb)
 Dp0, Ip0 = pq.search(xq, 5, nprobe=2)
-il = InterleavedRocInvertedLists(pq.invlists, interleave=3, interleave_min=20)
+il = InterleavedRocInvertedLists(pq.invlists, interleave=3, interleave_min=20,
+                                 device="cpu")
 assert il.overhead_in_bytes > 0
 pq.replace_invlists(il)
 Dp1, Ip1 = pq.search(xq, 5, nprobe=2)
@@ -76,7 +77,7 @@ from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_
 from vector_db_id_compression_tpu_torch.search.nsg import build_nsg, search_graph
 from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
 
-g, medoid = build_nsg(xb, R=8)
+g, medoid = build_nsg(xb, R=8, device="cpu")
 Dg, Ig = search_graph_device(g, xb, xq, 5, entry=medoid)
 for c in (RocGraph(g), RocBlockGraph(g, block=4)):
     D2, I2 = search_graph_device(c, xb, xq, 5, entry=medoid)

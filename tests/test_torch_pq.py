@@ -63,9 +63,9 @@ def containers(indexes):
     kw = dict(interleave=4, interleave_min=64)
     return {
         "uncompressed": (jidx.invlists, tidx.invlists),
-        "roc": (jinv.RocInvertedLists(jidx.invlists), tinv.RocInvertedLists(tidx.invlists)),
+        "roc": (jinv.RocInvertedLists(jidx.invlists), tinv.RocInvertedLists(tidx.invlists, device="cpu")),
         "interleaved": (jinv.InterleavedRocInvertedLists(jidx.invlists, **kw),
-                        tinv.InterleavedRocInvertedLists(tidx.invlists, **kw)),
+                        tinv.InterleavedRocInvertedLists(tidx.invlists, **kw, device="cpu")),
     }
 
 
@@ -138,7 +138,7 @@ def test_port_training_is_as_good_as_jax(data, indexes):
     codebooks within 10% of the JAX codebooks' on the same data."""
     xb, _ = data
     jidx, _ = indexes
-    pq = ProductQuantizer(D, M)
+    pq = ProductQuantizer(D, M, device="cpu")
     pq.train(xb)
     x = torch.from_numpy(xb)
     mse = float(((pq.decode(pq.encode(x)) - x) ** 2).sum(1).mean())
@@ -217,7 +217,8 @@ def test_two_adds_equal_one(data, indexes, storage):
     jidx, tidx = indexes
     indexes_ = []
     for batches in ([xb], [xb[:1500], xb[1500:]]):
-        idx = tivf.IndexIVF(D, NLIST, storage=storage, pq_m=M if storage == "pq" else 0)
+        idx = tivf.IndexIVF(D, NLIST, storage=storage, pq_m=M if storage == "pq" else 0,
+                             device="cpu")
         idx.centroids = tidx.centroids.clone()
         if storage == "pq":
             idx.pq.centroids = tidx.pq.centroids.clone()

@@ -32,6 +32,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from ..ops.roc_decode import RocDecoder
 from ..ops.roc_encode import RocEncoder
 from ..store.ragged import pad_lists
@@ -90,11 +91,11 @@ def chunk_plan(sorted_ids: np.ndarray, S: int):
 
 
 def interleaved_encode(ids: np.ndarray, S: int,
-                       device="cpu") -> Tuple[InterleavedRoc, np.ndarray]:
-    """Encode distinct u64 ``ids`` (< 2^63) as S lanes on ``device``, in one
-    encode launch. Returns (envelope, order): ``order[i]`` is the original
-    index of the element at decoded position i (lane-concatenated decode
-    order)."""
+                       device=DEFAULT_DEVICE) -> Tuple[InterleavedRoc, np.ndarray]:
+    """Encode distinct u64 ``ids`` (< 2^63) as S lanes on ``device`` (the
+    card unless the caller says ``device="cpu"``), in one encode launch.
+    Returns (envelope, order): ``order[i]`` is the original index of the
+    element at decoded position i (lane-concatenated decode order)."""
     ids = np.asarray(ids, dtype=np.uint64)
     n = len(ids)
     if not n >= S >= 1:
@@ -104,7 +105,7 @@ def interleaved_encode(ids: np.ndarray, S: int,
     sort_perm = np.argsort(ids, kind="stable")
     sizes, bounds, lo, prec, rebased = chunk_plan(ids[sort_perm], S)
     n_max = int(sizes.max())
-    dev = torch.device(device)
+    dev = resolve(device)
     table = pad_lists(rebased, n_max, dtype=np.uint64).view(np.int64)
     states, order = RocEncoder.encode(
         torch.from_numpy(table).to(dev), torch.from_numpy(sizes.astype(np.int32)).to(dev),

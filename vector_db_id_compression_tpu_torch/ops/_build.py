@@ -27,6 +27,11 @@ LIBRARY = BUILD_DIR / "libroc_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# The most dynamic shared memory one block may use on the H100 (sm_90): 227 KB
+# of the SM's 228 KB, past 48 KB only after cudaFuncSetAttribute. The ROC
+# kernels keep a lane's buffers in shared memory while a block's lanes fit
+# into it, else in global memory (``shared_lanes``).
+SHARED_BYTES_PER_BLOCK = 227 * 1024
 
 
 def _nvcc() -> str:
@@ -89,25 +94,34 @@ def load_library() -> ctypes.CDLL:
     ``c_void_p`` would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.roc_encode_launch.argtypes = [P, P, P, I, I, I, I, P, I, I, P, P, P, I, P,
+    lib.roc_encode_launch.argtypes = [P, P, P, I, I, I, P, I, I, I, I, P, P, P, I, P,
                                       P, P, P, P]
     lib.roc_encode_launch.restype = I
-    lib.roc_decode_launch.argtypes = [P, P, I, P, P, I, P, P, I, P, I, I, P, I, I,
-                                      I, P, P, P, P, P]
+    lib.roc_encode_lane_bytes.argtypes = [I]
+    lib.roc_encode_lane_bytes.restype = ctypes.c_longlong
+    lib.roc_decode_launch.argtypes = [P, P, I, P, P, I, P, P, I, P, I, P, I, I, I, I,
+                                      I, I, P, P, P, P]
     lib.roc_decode_launch.restype = I
+    lib.roc_decode_lane_bytes.argtypes = [I, I, I]
+    lib.roc_decode_lane_bytes.restype = ctypes.c_longlong
     lib.probe_gather_launch.argtypes = [P, P, I, I, I, P, P]
     lib.probe_gather_launch.restype = I
     lib.probe_decode_step_launch.argtypes = [P, P, I, I, I, P, P, P, P]
     lib.probe_decode_step_launch.restype = I
+    lib.probe_chain_decode_launch.argtypes = [P, P, I, P, P, P, P, P, I, I, P, I, I, P, P, P]
+    lib.probe_chain_decode_launch.restype = I
+    lib.probe_chain_encode_launch.argtypes = [P, P, P, I, I, P, I, I, P, P, I, P, P, P, P]
+    lib.probe_chain_encode_launch.restype = I
     lib.roc_error_string.argtypes = [I]
     lib.roc_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def lane_stride(lanes: int) -> int:
-    """Row stride of the kernels' [rows, lanes] scratch: ``lanes`` rounded
-    up to a whole warp, so that each warp's row segment is line-aligned."""
-    return -(-lanes // 32) * 32
+def shared_lanes(lane_bytes: int, lanes: int) -> int:
+    """Lanes per block whose buffers of ``lane_bytes`` each fit together into
+    ``SHARED_BYTES_PER_BLOCK``: ``lanes``, or fewer where fewer fit, or 0 where
+    not one does (the kernel then keeps them in global memory)."""
+    return min(lanes, SHARED_BYTES_PER_BLOCK // max(lane_bytes, 1))
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -7,11 +7,23 @@ on one device; ``decode()`` decodes every lane and ``decode_lanes(idx)`` the
 lanes named by an index tensor, in one launch either way. With lengths
 i32[L] a lane holds one list; with lengths i32[L, S] it holds S lists chained
 through its state (``RocEncoder.encode_chained``), decoded slot 0 first.
-Output is always in encode sampling order. On CUDA tensors it launches the
-kernel; on CPU tensors it runs the plain version,
-``codecs/roc_device.roc_decode_batch`` or ``roc_decode_chained``. There is no
-other route: a tensor on any other device raises, and a CUDA launch that
-fails raises.
+Output is always in encode sampling order, each lane in its own row of the
+output. On CUDA tensors it launches the kernel; on CPU tensors it runs the
+plain version, ``codecs/roc_device.roc_decode_batch`` or
+``roc_decode_chained``. There is no other route: a tensor on any other
+device raises, and a CUDA launch that fails raises.
+
+What bounds the kernel on the H100 is the longest lane's serial chain, plus
+the rank of each new symbol among the ones before it (O(n^2) comparisons per
+list); the bytes it moves take microseconds. The kernel runs a lane on a warp:
+the 32 threads run the chain in lockstep and split the rank, the lane's
+symbols and stack copy sit in shared memory, and the ids are written once,
+coalesced. This wrapper picks the layout: up to ``WARPS_PER_BLOCK`` lanes
+per block, as many as fit into ``_build.SHARED_BYTES_PER_BLOCK`` (the card's
+227 KB) at the launch's ``roc_decode_lane_bytes`` (symbols of 4 bytes when
+every precision is <= 32, else 8, and the stack copy: about 15 KB at n_max
+2127 and precision 20); a lane larger than the limit (about 33,000 ids at
+precision 20) runs with the same buffers in global memory.
 """
 
 from __future__ import annotations
@@ -19,10 +31,13 @@ from __future__ import annotations
 import torch
 
 from ..codecs import roc_device as rd
-from ._build import check_launch, lane_stride, load_library
+from . import _build
+from ._build import check_launch, load_library
 
 # err of a lane index outside the table (csrc/roc_decode.cu kLaneOutOfRange)
 LANE_OUT_OF_RANGE = 2
+# lanes (warps) per block where their buffers fit in shared memory
+WARPS_PER_BLOCK = 4
 
 
 class RocDecoder:
@@ -75,6 +90,7 @@ class RocDecoder:
         # [L, S] views; S = 1 for one list per lane
         self._len_table = self.lengths.reshape(L, -1)
         self._prec_table = self.precision.reshape(L, -1)
+        self._layout = None  # the kernel's, at the first launch
         self.pool = pool.to(self.device).contiguous()
         self.n_max = n_max
         self.n_slices = rd.n_slices_for(max_precision)
@@ -109,28 +125,41 @@ class RocDecoder:
                                "exhausted")
         return ids if self.chained else ids[:, 0]
 
+    def layout(self):
+        """The kernel's layout for this table: (bytes per symbol, bytes of a
+        lane's buffers, lanes per block in shared memory; 0: the buffers lie
+        in global memory, ``WARPS_PER_BLOCK`` lanes per block)."""
+        if self._layout is None:
+            sym_bytes = 4 if self.n_slices <= 2 else 8
+            lane_bytes = load_library().roc_decode_lane_bytes(
+                self.n_max, self.states.stack.shape[1], sym_bytes)
+            self._layout = sym_bytes, lane_bytes, _build.shared_lanes(lane_bytes,
+                                                                      WARPS_PER_BLOCK)
+        return self._layout
+
     def _launch(self, idx: torch.Tensor):
         lib = load_library()
         Q = idx.numel()
-        S = self._len_table.shape[1]
+        L, S = self._len_table.shape
         cap = self.states.stack.shape[1]
         device = self.device
         ids = torch.empty((Q, S, self.n_max), dtype=torch.int64, device=device)
         err = torch.empty(Q, dtype=torch.int32, device=device)
-        # decode pops and spills: it runs on a scratch copy of each stack
-        stride = lane_stride(Q)
-        scratch = torch.empty((cap, stride), dtype=torch.int32, device=device)
-        syms = torch.empty((self.n_max, stride), dtype=torch.int64, device=device)
+        sym_bytes, lane_bytes, warps = self.layout()
+        # lanes too large for shared memory: their buffers in global memory
+        scratch = (None if warps else
+                   torch.empty(Q * lane_bytes, dtype=torch.uint8, device=device))
         st = self.states
         with torch.cuda.device(device):
             code = lib.roc_decode_launch(
                 st.head.data_ptr(), st.stack.data_ptr(), cap,
-                st.stack_len.data_ptr(), st.mt_ctr.data_ptr(), st.head.shape[0],
+                st.stack_len.data_ptr(), st.mt_ctr.data_ptr(), L,
                 self._len_table.data_ptr(), self._prec_table.data_ptr(), S,
-                idx.data_ptr(), Q, stride, self.pool.data_ptr(), self.pool.numel(),
-                self.n_slices, self.n_max, scratch.data_ptr(), syms.data_ptr(),
-                ids.data_ptr(), err.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
+                idx.data_ptr(), Q, self.pool.data_ptr(),
+                self.pool.numel(), self.n_slices, self.n_max, sym_bytes,
+                warps or WARPS_PER_BLOCK, int(warps > 0),
+                None if scratch is None else scratch.data_ptr(), ids.data_ptr(),
+                err.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
         check_launch(lib, code, "ROC decode")
         if self.chained:
             RocDecoder.chained_launches += 1

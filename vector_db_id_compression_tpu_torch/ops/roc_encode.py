@@ -9,6 +9,14 @@ one state per lane. On CUDA tensors both launch the kernel; on CPU tensors
 they run the plain version, ``codecs/roc_device.roc_encode_batch`` or
 ``roc_encode_chained``. There is no other route: a tensor on any other device
 raises, and a CUDA launch that fails raises.
+
+The kernel runs a lane on one thread, so a launch takes as long as its
+longest lane's serial chain. Its select (the k-th remaining sorted id) is a
+bitmap of the remaining slots with a Fenwick tree over its words' counts,
+``roc_encode_lane_bytes`` per lane (about 0.5 KB at n_max 2127), in shared
+memory while a block's ``LANES_PER_BLOCK`` lanes fit into
+``_build.SHARED_BYTES_PER_BLOCK`` (the card's 227 KB: lists of up to about
+29,000 ids), else in global memory.
 """
 
 from __future__ import annotations
@@ -16,7 +24,11 @@ from __future__ import annotations
 import torch
 
 from ..codecs import roc_device as rd
-from ._build import check_launch, lane_stride, load_library
+from . import _build
+from ._build import check_launch, load_library
+
+# lanes (threads) per block
+LANES_PER_BLOCK = 32
 
 
 def _check_lane_table(name: str, t: torch.Tensor, shape, device) -> None:
@@ -98,6 +110,14 @@ def _encode(sorted_ids, lengths, precision, chained: bool):
     return states, order
 
 
+def encode_layout(n_max: int):
+    """The kernel's layout for lanes of up to n_max ids: (bytes of a lane's
+    select structure, whether a block's ``LANES_PER_BLOCK`` lanes keep theirs
+    in shared memory)."""
+    lane_bytes = load_library().roc_encode_lane_bytes(n_max)
+    return lane_bytes, _build.shared_lanes(lane_bytes, LANES_PER_BLOCK) == LANES_PER_BLOCK
+
+
 def _launch(sorted_ids, lengths, precision, pool, cap: int, n_slices: int,
             chained: bool):
     lib = load_library()
@@ -110,15 +130,19 @@ def _launch(sorted_ids, lengths, precision, pool, cap: int, n_slices: int,
     mt_ctr = torch.empty(B, **i32)
     err = torch.empty(B, **i32)
     order = None if chained else torch.empty((B, n_max), **i32)
-    stride = lane_stride(B)
-    tree = torch.empty((n_max + 1, stride), **i32)
+    lane_bytes, shared = encode_layout(n_max)
+    # lanes too long for shared memory: their select structures in global memory
+    blocks = -(-B // LANES_PER_BLOCK)
+    scratch = (None if shared else torch.empty(blocks * LANES_PER_BLOCK * lane_bytes,
+                                               dtype=torch.uint8, device=device))
     with torch.cuda.device(device):
         code = lib.roc_encode_launch(
-            sorted_ids.data_ptr(), lengths.data_ptr(), precision.data_ptr(), B, S,
-            stride, n_max, pool.data_ptr(), pool.numel(), n_slices, tree.data_ptr(),
-            head.data_ptr(), stack.data_ptr(), cap, stack_len.data_ptr(),
-            mt_ctr.data_ptr(), None if order is None else order.data_ptr(),
-            err.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            sorted_ids.data_ptr(), lengths.data_ptr(), precision.data_ptr(), B, S, n_max,
+            pool.data_ptr(), pool.numel(), n_slices, LANES_PER_BLOCK, int(shared),
+            None if scratch is None else scratch.data_ptr(), head.data_ptr(),
+            stack.data_ptr(), cap, stack_len.data_ptr(), mt_ctr.data_ptr(),
+            None if order is None else order.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, code, "ROC encode")
     if chained:
         RocEncoder.chained_launches += 1

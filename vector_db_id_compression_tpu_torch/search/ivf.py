@@ -34,6 +34,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from ..store.invlists import InvertedLists
 from ..store.ragged import bucketize
 from .kmeans import assign, train_kmeans
@@ -102,10 +103,10 @@ def _masked_topk(d2, sb: _ScanBucket, lanes, k: int):
 class IndexIVF:
     """IVF index with flat (float32) or PQ (``pq_m`` bytes) payload and a
     flat coarse quantizer, with pluggable compressed ID containers. Tensors
-    live on ``device``."""
+    live on ``device``: the card unless the caller says ``device="cpu"``."""
 
     def __init__(self, d: int, nlist: int, storage: str = "flat", pq_m: int = 0,
-                 nprobe: int = 1, quantizer: str = "flat", device="cpu"):
+                 nprobe: int = 1, quantizer: str = "flat", device=DEFAULT_DEVICE):
         if storage not in ("flat", "pq") or quantizer != "flat":
             raise NotImplementedError(
                 f"storage={storage!r}, quantizer={quantizer!r}: flat and PQ "
@@ -114,8 +115,7 @@ class IndexIVF:
         self.nlist = nlist
         self.storage = storage
         self.nprobe = nprobe
-        self.device = torch.device(device)
-        torch.empty(0, device=self.device)  # an unavailable device raises here
+        self.device = resolve(device)  # an unavailable device raises here
         self.pq = ProductQuantizer(d, pq_m, device=self.device) if storage == "pq" else None
         self.centroids: Optional[torch.Tensor] = None
         self.invlists: Optional[InvertedLists] = None
@@ -319,11 +319,12 @@ class IndexIVF:
         return torch.from_numpy(out.reshape(*labels.shape, cs + ccs)).to(self.device)
 
 
-def load_index(path, device="cpu") -> IndexIVF:
+def load_index(path, device=DEFAULT_DEVICE) -> IndexIVF:
     """Read the .npz that the JAX package's ``search.ivf.save_index`` writes
     (centroids, lengths, ids_flat, codes_flat, meta, and for PQ storage
     pq_centroids and pq_meta) into a port index on ``device`` holding the
     same inverted lists and codebooks. Flat and PQ storage."""
+    device = resolve(device)
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
         centroids = z["centroids"]

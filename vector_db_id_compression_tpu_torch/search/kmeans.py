@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
+
 
 def assign(x: torch.Tensor, centroids: torch.Tensor, budget: int = 2 ** 28) -> torch.Tensor:
     """Nearest centroid per row (L2) → i64[n]. Blocked over rows so that the
@@ -37,10 +39,12 @@ def _update(x: torch.Tensor, a: torch.Tensor, centroids: torch.Tensor,
 
 
 def train_kmeans(x, k: int, niter: int = 20, seed: int = 1234,
-                 max_points_per_centroid: int = 256, device="cpu") -> torch.Tensor:
-    """Centroids f32[k, d] on ``device``. Training subsamples to
+                 max_points_per_centroid: int = 256, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Centroids f32[k, d] on ``device`` (the card unless the caller says
+    ``device="cpu"``). Training subsamples to
     ``max_points_per_centroid * k`` points (the faiss clustering default),
     with the same numpy draw as the JAX package."""
+    device = resolve(device)
     x = np.asarray(x, dtype=np.float32) if not torch.is_tensor(x) else x
     cap = max_points_per_centroid * k
     if len(x) > cap:

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..store.graph import Graph
 
 # cap on gathered candidate-vector elements per prune block (1 GiB of float32)
@@ -41,7 +42,9 @@ PRUNE_BUDGET = 2 ** 28
 
 
 def _as_f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """x as float32 on ``device``; None: x's device for a tensor, else the
+    card."""
+    return torch.as_tensor(x, dtype=torch.float32, device=resolve(device, x))
 
 
 # ---------------------------------------------------------------------------
@@ -51,7 +54,7 @@ def _as_f32(x, device=None) -> torch.Tensor:
 
 def build_knn_graph(xb, knn: int, block: int = 1024) -> torch.Tensor:
     """Exact kNN graph (self excluded) via blocked matrix products →
-    i32[N, knn] on the device of ``xb`` (a tensor; the CPU for numpy)."""
+    i32[N, knn] on the device of ``xb`` (a tensor; the card for numpy)."""
     xb = _as_f32(xb)
     N = xb.shape[0]
     b2 = (xb * xb).sum(dim=1)
@@ -87,12 +90,13 @@ def _mrng_prune_block(cand_vecs, cand_d, valid, R: int) -> torch.Tensor:
 
 
 def build_nsg(xb, R: int, knn: Optional[int] = None, block: Optional[int] = None,
-              progress: Optional[bool] = None) -> Tuple[Graph, int]:
-    """NSG-style graph with max degree R on the device of ``xb`` → (Graph,
-    medoid entry). ``block`` nodes are pruned at a time (default: as many
-    as ``PRUNE_BUDGET`` gathered candidate elements allow); the result does
-    not depend on it."""
-    xb = _as_f32(xb)
+              progress: Optional[bool] = None, device=None) -> Tuple[Graph, int]:
+    """NSG-style graph with max degree R on ``device`` (default: the device
+    of ``xb`` for a tensor, the card for numpy; ``device="cpu"`` for the
+    CPU) → (Graph, medoid entry). ``block`` nodes are pruned at a time
+    (default: as many as ``PRUNE_BUDGET`` gathered candidate elements allow);
+    the result does not depend on it."""
+    xb = _as_f32(xb, device)
     N, d = xb.shape
     if progress is None:
         progress = N >= 200_000

@@ -5,9 +5,10 @@ centroids, trained by k-means per subspace; encode = the nearest centroid
 per subspace; decode = a gather of centroids by code; the asymmetric
 distance tables (LUTs) hold the squared L2 from each query subvector to
 every centroid. The centroids are an f32[M, ksub, dsub] tensor on
-``device``. Training draws other numbers than the JAX package's k-means
-(``search/kmeans.py``), so trained centroids differ between the packages;
-``search/ivf.py`` ``load_index`` carries the JAX package's across.
+``device`` (the card unless the caller says ``device="cpu"``). Training
+draws other numbers than the JAX package's k-means (``search/kmeans.py``),
+so trained centroids differ between the packages; ``search/ivf.py``
+``load_index`` carries the JAX package's across.
 """
 
 from __future__ import annotations
@@ -16,17 +17,18 @@ from typing import Optional
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve
 from .kmeans import assign, train_kmeans
 
 
 class ProductQuantizer:
-    def __init__(self, d: int, M: int, ksub: int = 256, device="cpu"):
+    def __init__(self, d: int, M: int, ksub: int = 256, device=DEFAULT_DEVICE):
         if M < 1 or d % M:
             raise ValueError(f"d = {d} must be a multiple of M = {M}")
         if not 1 <= ksub <= 256:
             raise ValueError("ksub must lie in [1, 256]: codes are one byte per subspace")
         self.d, self.M, self.ksub = d, M, ksub
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.centroids: Optional[torch.Tensor] = None  # f32[M, ksub, dsub]
 
     @property

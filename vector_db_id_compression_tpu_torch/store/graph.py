@@ -34,19 +34,20 @@ import torch
 
 from ..codecs import roc_device as rd
 from ..codecs.roc import precision_for_max_ids_safe
+from ..device import resolve
 from ..ops.roc_decode import RocDecoder
 from ..ops.roc_encode import RocEncoder
 
 
 class Graph:
     """Dense adjacency i32[N, K], each row's neighbours first and -1 after
-    them, on ``device`` (default: the adjacency's own device; the CPU for a
-    numpy array such as the JAX package's ``Graph.adjacency``)."""
+    them, on ``device`` (default: the adjacency's own device for a tensor,
+    the card for a numpy array such as the JAX package's
+    ``Graph.adjacency``; ``device="cpu"`` for the CPU)."""
 
     def __init__(self, adjacency, device=None):
-        if device is None:
-            device = adjacency.device if isinstance(adjacency, torch.Tensor) else "cpu"
-        adj = torch.as_tensor(adjacency, dtype=torch.int32, device=device)
+        adj = torch.as_tensor(adjacency, dtype=torch.int32,
+                              device=resolve(device, adjacency))
         if adj.dim() != 2:
             raise ValueError(f"adjacency must be 2-D [N, K], got {list(adj.shape)}")
         self.adjacency = adj.contiguous()

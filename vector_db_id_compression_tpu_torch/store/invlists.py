@@ -29,6 +29,7 @@ import torch
 from ..codecs import roc_device as rd
 from ..codecs.roc import precision_for_max_id_safe
 from ..codecs.roc_interleaved import chunk_plan
+from ..device import DEFAULT_DEVICE, resolve
 from ..ops.roc_decode import RocDecoder
 from ..ops.roc_encode import RocEncoder
 from .ragged import pad_lists
@@ -60,14 +61,15 @@ class CompressedInvertedLists:
     """Base: common bookkeeping and the grouped translate over
     ``decode_lists``. ``overhead_in_bytes`` counts what a container stores
     beyond the reference's per-list streams (the interleaved lanes'
-    envelopes)."""
+    envelopes). Its tensors live on ``device``: the card unless the caller
+    says ``device="cpu"``."""
 
     supports_random_access = False
 
-    def __init__(self, il: InvertedLists, device="cpu"):
+    def __init__(self, il: InvertedLists, device=DEFAULT_DEVICE):
         self.nlist = il.nlist
         self.code_size = il.code_size
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._lengths = il.lengths.copy()
         self.compressed_ids_size_in_bytes = 0
         self.overhead_in_bytes = 0
@@ -137,7 +139,7 @@ class RocInvertedLists(CompressedInvertedLists):
     get_single_id). ``decoder`` decodes any subset of the lists in one
     launch."""
 
-    def __init__(self, il: InvertedLists, device="cpu"):
+    def __init__(self, il: InvertedLists, device=DEFAULT_DEVICE):
         super().__init__(il, device)
         sorted_ids, lengths, prec, perms = roc_lane_table(il)
         self.id_symbol_precision = prec.astype(np.int64)
@@ -264,7 +266,7 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
     AUTO_CHUNK_TARGET = AUTO_CHUNK_TARGET
 
     def __init__(self, il: InvertedLists, interleave="auto", interleave_min: int = 4096,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         super().__init__(il, device)
         self.interleave = interleave
         t = interleaved_lane_table(il, interleave, interleave_min)
