@@ -7,10 +7,12 @@ each, at SIFT1M's shape: 1,000,000 synthetic database vectors of d = 128
 nprobe = 16, the ids of every inverted list ROC-compressed and decoded only
 after the top-k is final (deferred id decoding), once with flat payload and
 once with 16-byte PQ codes (IVF1024,PQ16) and the long lists' ids coded as
-interleaved chunk lanes. The graph path: an NSG graph of degree R = 32 over
-the same database, searched on the card with its adjacency dense,
-ROC-compressed per node, and ROC-compressed in chained blocks of 16 nodes,
-decoded inside the traversal. Phases:
+interleaved chunk lanes; and the flat index with the paper's other id codecs
+(packed bits, Elias-Fano, wavelet tree) translated by random access. The
+graph path: an NSG graph of degree R = 32 over the same database, searched on
+the card with its adjacency dense, ROC-compressed per node, ROC-compressed in
+chained blocks of 16 nodes, packed in fixed-width fields and Elias-Fano
+coded, decoded inside the traversal. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -26,7 +28,15 @@ decoded inside the traversal. Phases:
               launched by that path; then bits/id and phase times, and each
               search under torch.profiler (wall and device ms, idle share,
               the kernels with the most device time)
-  5. pq       IVF1024,PQ16: train, add, search uncompressed (the decoded-
+  5. codecs   the paper's other IVF id codecs on main's index: packed bits,
+              Elias-Fano and the wavelet tree with plain and with RRR planes,
+              each built on the card; every list recovered by decode_lists,
+              and the search with either translate (random access, grouped)
+              identical to the uncompressed search in I and D; then bits/id
+              (payload and overhead), build ms, each translate's ms and device
+              launches (torch.profiler), search ms. Plain torch: no kernel of
+              this path is written by hand
+  6. pq       IVF1024,PQ16: train, add, search uncompressed (the decoded-
               reconstruction scan), swap in RocInvertedLists and then
               InterleavedRocInvertedLists and search each, then the LUT scan
               over the interleaved container: each equal to the uncompressed
@@ -35,19 +45,20 @@ decoded inside the traversal. Phases:
               reorders them); every list's ids recovered by the interleaved
               decode; both kernels launched in this phase; then bits/id,
               recall and times (profiled as in main)
-  6. graph    build_nsg on the card, the two ROC graphs, and the search with
-              each of the three containers: identical I and D or the run
-              fails; every ROC kernel must have been launched by this phase;
-              the host-loop search (search_graph, a separate walk) must give
+  7. graph    build_nsg on the card, the two ROC graphs, the compact-bit and
+              Elias-Fano graphs, and the search with each of the five
+              containers: identical I and D or the run fails; every ROC
+              kernel must have been launched by this phase; the host-loop
+              search (search_graph, a separate walk) must give
               the same I on 32 queries; then bits/edge, hops, recall and
               search times
-  7. probes   the two decode-step probes against their plain versions
-  8. chain    the chain probe (the codec's serial chain, no rank or select
+  8. probes   the two decode-step probes against their plain versions
+  9. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
-  9. timing   each kernel beside its plain version at its paths' shapes:
+ 10. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
               entries, and at the graph's (per node and chained), bit-equal
               or the run fails; the native host codec over the PQ index's
@@ -472,6 +483,105 @@ def phase_main(xt, xb, xq):
     return index, roc, launches, I_bf[:, :K]
 
 
+def device_ops(fn):
+    """(kernels, copies and memsets, their device ms) of one call of ``fn``
+    on the card, from torch.profiler after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in ops if e.key.startswith(("Memcpy", "Memset")))
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    return sum(e.count for e in ops) - copies, copies, device_ms
+
+
+def phase_codecs(index, roc, xq):
+    """The paper's other IVF id codecs on the [main] index, through the
+    user-facing entry points: PackedBitsInvertedLists, EliasFanoInvertedLists
+    and WaveletTreeInvertedLists (wt_type 0 and 1) built on the card from the
+    index's lists; each must recover every list and give the uncompressed
+    search's I and D exactly with either translate (the lists are ascending,
+    so no container reorders one). Leaves ``roc`` active, as [timing] reads
+    the ROC search's launches."""
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.store.invlists import AVAILABLE_COMPRESSED_IVFS
+
+    cuda = torch.device("cuda")
+    il = index.invlists
+    lengths = il.lengths
+    n = index.ntotal
+    src = torch.zeros((NLIST, int(lengths.max())), dtype=torch.int64)
+    for ln in range(NLIST):
+        src[ln, : lengths[ln]] = torch.from_numpy(il.ids[ln].view(np.int64))
+    src = src.cuda()
+    index.replace_invlists(il)
+    D0, I0 = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    _, L = index.search_positional(xq, K, NPROBE)
+    labels = int((L >= 0).sum())
+    lns, offs = L[L >= 0] >> 32, L[L >= 0] & 0xFFFFFFFF
+    # ---- this path runs no hand-written kernel (plain torch, ROADMAP Queue
+    # A 4); the ROC kernels' counts over it stay 0
+    RocEncoder.launches = RocDecoder.launches = 0
+    out = {}
+    for name in ("packed-bits", "elias-fano", "wavelet-tree", "wavelet-tree-1"):
+        t_build, c = cuda_ms(lambda: AVAILABLE_COMPRESSED_IVFS[name](il, device=cuda))
+        for lo in range(0, NLIST, 128):
+            lists = torch.arange(lo, lo + 128, device=cuda)
+            ids, lens = c.decode_lists(lists)
+            if not (torch.equal(lens.cpu(), torch.from_numpy(lengths[lo:lo + 128]))
+                    and torch.equal(ids, src[lo:lo + 128, : ids.shape[1]])):
+                raise AssertionError(f"{name}: decode_lists of lists {lo}..{lo + 127} differs "
+                                     "from the source lists")
+        index.replace_invlists(c)
+        for one_by_one in (True, False):
+            D1, I1 = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE,
+                                                    decode_1by1=one_by_one)
+            if not (torch.equal(I1, I0) and torch.equal(D1, D0)):
+                raise AssertionError(f"{name} search (decode_1by1={one_by_one}): I or D "
+                                     "differs from the uncompressed search")
+        r = {"payload_bits_per_id": c.compressed_ids_size_in_bytes * 8 / n,
+             "overhead_bits_per_id": c.overhead_in_bytes * 8 / n, "build_ms": t_build}
+        for mode, one_by_one in (("random_access", True), ("grouped", False)):
+            r[f"translate_{mode}_ms"] = median_ms(lambda: index._translate(L, one_by_one))
+            r[f"translate_{mode}_ops"] = device_ops(lambda: index._translate(L, one_by_one))
+        # the select alone (ef_select, wt_select, wt_select_rrr, the packed
+        # fields read) over the labels, without the translate's label split
+        r["select_ms"] = median_ms(lambda: c.get_single_ids_batch(lns, offs))
+        r["select_ops"] = device_ops(lambda: c.get_single_ids_batch(lns, offs))
+        r["search_ms"] = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
+        profile_search(index, xq, f"flat {name}")
+        out[name] = r
+        del c
+    torch.cuda.synchronize()
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+    # ----
+    index.replace_invlists(roc)
+    log(f"[codecs] IVF{NLIST},Flat over {n} ids (ascending lists): PackedBits, EliasFano, "
+        f"WaveletTree(0), WaveletTree(1) built on the card; every list recovered by "
+        f"decode_lists; search at nprobe {NPROBE} with decode_1by1 true and false: I and D "
+        f"identical to the uncompressed search; hand-written kernels launched on this path "
+        f"(none expected): {launches}")
+
+    def ops(r, key):
+        kernels, copies, device_ms = r[f"{key}_ops"]
+        return (f"{r[f'{key}_ms']:.3f} ms ({kernels} kernels, {copies} copies/memsets, "
+                f"device busy {device_ms:.3f} ms)")
+
+    for name, r in out.items():
+        log(f"[codecs] {name}: bits/id {r['payload_bits_per_id']:.4f} payload + "
+            f"{r['overhead_bits_per_id']:.4f} overhead; build {r['build_ms']:.1f} ms; translate "
+            f"of {labels} labels: random access {ops(r, 'translate_random_access')}, grouped "
+            f"{ops(r, 'translate_grouped')}; the select alone {ops(r, 'select')}; search "
+            f"{r['search_ms']:.2f} ms (CUDA-event medians of 5 after a warm-up; launches and "
+            f"device time from torch.profiler)")
+
+
 def search_times(index, xq, what: str):
     """(search, positional, translate ms: CUDA-event medians of 5 after a
     warm-up; lists touched by the translate) for the active container; logs
@@ -623,7 +733,8 @@ def phase_graph(xb, xq, I_bf):
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
     from vector_db_id_compression_tpu_torch.search.nsg import build_nsg, search_graph
-    from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
+    from vector_db_id_compression_tpu_torch.store.graph import (
+        CompactBitGraph, EliasFanoGraph, RocBlockGraph, RocGraph)
 
     xb_d = torch.from_numpy(xb).cuda()
     xq_d = torch.from_numpy(xq).cuda()
@@ -640,8 +751,12 @@ def phase_graph(xb, xq, I_bf):
     before = RocEncoder.chained_launches
     t_blk, blk = cuda_ms(lambda: RocBlockGraph(g, block=GRAPH_BLOCK))
     per_unit = {"roc_encode_chained": RocEncoder.chained_launches - before}
+    t_cb, cb = cuda_ms(lambda: CompactBitGraph(g))
+    t_ef, efg = cuda_ms(lambda: EliasFanoGraph(g))
+    containers = (("Graph", g), ("RocGraph", roc), ("RocBlockGraph", blk),
+                  ("CompactBitGraph", cb), ("EliasFanoGraph", efg))
     results, capped = {}, {}
-    for name, container in (("Graph", g), ("RocGraph", roc), ("RocBlockGraph", blk)):
+    for name, container in containers:
         before = RocDecoder.launches, RocDecoder.chained_launches
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -669,8 +784,8 @@ def phase_graph(xb, xq, I_bf):
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the graph path was not launched: {launches}")
     log(f"[graph] search of {NQ} queries, k={K}, L={2 * K}, entry medoid: I and D "
-        f"identical for Graph, RocGraph, RocBlockGraph(block={GRAPH_BLOCK}); "
-        f"launches {launches}")
+        f"identical for Graph, RocGraph, RocBlockGraph(block={GRAPH_BLOCK}), "
+        f"CompactBitGraph, EliasFanoGraph; launches {launches}")
     # a second witness: the host-loop search (its own pool merge and visited
     # sets, held against the JAX package in tests/test_torch_graph.py) on the
     # first queries; D within rtol 1e-5, since its distance batches have
@@ -683,18 +798,19 @@ def phase_graph(xb, xq, I_bf):
     torch.testing.assert_close(Dh, D0[:NQ_HOST], rtol=1e-5, atol=1e-5)
     log(f"[graph] host-loop search_graph on {NQ_HOST} queries ({t_host:.1f} s): I "
         f"identical to search_graph_device's, D within rtol 1e-5")
-    for name, c, t in (("RocGraph", roc, t_roc), ("RocBlockGraph", blk, t_blk)):
+    for name, c, t in (("RocGraph", roc, t_roc), ("RocBlockGraph", blk, t_blk),
+                       ("CompactBitGraph", cb, t_cb), ("EliasFanoGraph", efg, t_ef)):
         log(f"[graph] {name}: built in {t:.1f} ms (CUDA events), "
             f"compressed_ids_size_in_bytes {c.compressed_ids_size_in_bytes}, "
             f"overhead_in_bytes {c.overhead_in_bytes}, bits/edge "
             f"{c.compressed_ids_size_in_bytes * 8 / edges:.4f} "
             f"({(c.compressed_ids_size_in_bytes + c.overhead_in_bytes) * 8 / edges:.4f} "
-            f"with the degrees; 32 for the raw int32 adjacency)")
+            f"with overhead_in_bytes; 32 for the raw int32 adjacency)")
     r1, r10 = recalls(I0, I_bf)
     log(f"[graph] {hops} hops (decode launches of one RocGraph search), max_iters "
         f"cap hit: {capped}; recall@1 {r1:.4f}, recall@{K} {r10:.4f} against brute force")
     times = {name: median_ms(lambda c=c: search_graph_device(c, xb_d, xq_d, k=K, entry=medoid))
-             for name, c in (("Graph", g), ("RocGraph", roc), ("RocBlockGraph", blk))}
+             for name, c in containers}
     log("[graph] search ms (CUDA events, median of 5 after a warm-up): "
         + ", ".join(f"{name} {t:.2f}" for name, t in times.items()))
     per_unit["roc_decode"] = hops
@@ -1069,6 +1185,7 @@ def main() -> None:
     log(f"[main] data: {NT} train, {NB} database, {NQ} query vectors of d={D} "
         f"(seed {args.seed}) in {time.perf_counter() - t0:.1f} s on the host")
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
+    phase_codecs(index, roc, xq)
     pq_index, pq_roc, pq_il, pq_launches = phase_pq(xt, xb, xq, I_bf,
                                                     int(index.invlists.lengths.max()))
     g, roc_g, blk, graph_launches, nodes, per_unit = phase_graph(xb, xq, I_bf)

@@ -26,9 +26,17 @@ from vector_db_id_compression_tpu_torch.search import ivf
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
 from vector_db_id_compression_tpu_torch.search.nsg import build_nsg
-from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
+from vector_db_id_compression_tpu_torch.store.graph import (
+    CompactBitGraph,
+    EliasFanoGraph,
+    Graph,
+    RocBlockGraph,
+    RocGraph,
+)
 from vector_db_id_compression_tpu_torch.store.invlists import (
+    AVAILABLE_COMPRESSED_IVFS,
     InterleavedRocInvertedLists,
+    InvertedLists,
     RocInvertedLists,
 )
 
@@ -321,3 +329,81 @@ def test_entry_points_default_to_the_card(cuda):
     assert RocInvertedLists(index.invlists).decoder.device.type == "cuda"
     g, _ = build_nsg(xb[:500], R=8)
     assert g.device.type == "cuda"
+
+
+def _tensors(container):
+    """The stored tables of a packed-bits, Elias-Fano or wavelet-tree
+    container, by name."""
+    if hasattr(container, "packed"):
+        return {"words": container.packed.words, "lengths": container.packed.lengths}
+    if hasattr(container, "ef"):
+        ef = container.ef
+        return {"high": ef.high.words, "dir": ef.high.sb_prefix, "nbits": ef.high.nbits,
+                "low": ef.low_words, "l": ef.l, "m": ef.m}
+    return dict(zip(container.wt._fields[:-2], tuple(container.wt)[:-2]))
+
+
+@pytest.mark.parametrize("name", ["packed-bits", "elias-fano", "wavelet-tree", "wavelet-tree-1"])
+def test_codec_containers_on_card_equal_cpu(cuda, name):
+    """Each container built on the card from seeded lists (ids in id order,
+    an empty list, a list of one id, one list past several superblocks)
+    equals the port's CPU container: words, sizes, selects, decoded lists."""
+    rng = np.random.default_rng(11)
+    nlist = 64
+    assign = rng.integers(2, nlist, 30000)
+    assign[:4000] = 5  # a long list
+    assign[7] = 1      # list 1 holds one id; list 0 none
+    il = InvertedLists(nlist, 1)
+    for ln in range(nlist):
+        ids = np.flatnonzero(assign == ln).astype(np.uint64)
+        il.add_entries(ln, ids, rng.integers(0, 256, len(ids)).astype(np.uint8))
+    make = AVAILABLE_COMPRESSED_IVFS[name]
+    cpu, card = make(il, device="cpu"), make(il, device=cuda)
+    assert card.compressed_ids_size_in_bytes == cpu.compressed_ids_size_in_bytes
+    assert card.overhead_in_bytes == cpu.overhead_in_bytes
+    for field, want in _tensors(cpu).items():
+        assert torch.equal(_tensors(card)[field].cpu(), want), field
+    lists = torch.arange(nlist)
+    ids_cpu, lens_cpu = cpu.decode_lists(lists)
+    ids_card, lens_card = card.decode_lists(lists.to(cuda))
+    assert torch.equal(ids_card.cpu(), ids_cpu) and torch.equal(lens_card.cpu(), lens_cpu)
+    for ln in range(nlist):
+        assert torch.equal(ids_cpu[ln, : lens_cpu[ln]],
+                           torch.from_numpy(il.ids[ln].view(np.int64)))
+    lns = torch.from_numpy(rng.choice(np.arange(1, nlist), 5000))
+    offs = (torch.rand(5000, generator=torch.Generator().manual_seed(3))
+            * lens_cpu[lns]).long()
+    want = cpu.get_single_ids_batch(lns, offs)
+    assert torch.equal(card.get_single_ids_batch(lns.to(cuda), offs.to(cuda)).cpu(), want)
+    assert torch.equal(card.decode_select(lns.to(cuda), offs.to(cuda)).cpu(), want)
+
+
+def test_graph_codec_containers_on_card_equal_cpu(cuda):
+    """CompactBitGraph and EliasFanoGraph built on the card equal the CPU
+    ones (words, sizes, fetched neighbours), and search like the dense
+    graph."""
+    rng = np.random.default_rng(12)
+    N, K = 3000, 16
+    adj = np.full((N, K), -1, np.int32)
+    deg = rng.integers(1, K + 1, N)
+    deg[:2] = [0, K]
+    for i in range(N):
+        adj[i, : deg[i]] = rng.choice(np.arange(1, N), deg[i], replace=False)
+    g_cpu, g_card = Graph(adj, device="cpu"), Graph(adj, device=cuda)
+    xb = torch.from_numpy(rng.standard_normal((N, 8)).astype(np.float32))
+    xq = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
+    D0, I0 = search_graph_device(g_card, xb.to(cuda), xq.to(cuda), 10, entry=1)
+    nodes = torch.from_numpy(rng.integers(0, N, 500))
+    for make in (CompactBitGraph, EliasFanoGraph):
+        cpu, card = make(g_cpu), make(g_card)
+        assert card.compressed_ids_size_in_bytes == cpu.compressed_ids_size_in_bytes
+        assert card.overhead_in_bytes == cpu.overhead_in_bytes
+        words = (lambda c: (c.words,)) if make is CompactBitGraph else (
+            lambda c: (c.ef.high.words, c.ef.high.sb_prefix, c.ef.low_words, c.ef.l))
+        for got, want in zip(words(card), words(cpu)):
+            assert torch.equal(got.cpu(), want)
+        nb, cnt = card.get_neighbors_batch(nodes.to(cuda))
+        nb_cpu, cnt_cpu = cpu.get_neighbors_batch(nodes)
+        assert torch.equal(nb.cpu(), nb_cpu) and torch.equal(cnt.cpu(), cnt_cpu)
+        D1, I1 = search_graph_device(card, xb.to(cuda), xq.to(cuda), 10, entry=1)
+        assert torch.equal(I1, I0) and torch.equal(D1, D0)

@@ -20,10 +20,13 @@ from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index
 from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
 from vector_db_id_compression_tpu_torch.search.nsg import build_knn_graph, build_nsg
 from vector_db_id_compression_tpu_torch.search.pq import ProductQuantizer
-from vector_db_id_compression_tpu_torch.store.graph import Graph
+from vector_db_id_compression_tpu_torch.store.graph import CompactBitGraph, EliasFanoGraph, Graph
 from vector_db_id_compression_tpu_torch.store.invlists import (
+    EliasFanoInvertedLists,
     InterleavedRocInvertedLists,
+    PackedBitsInvertedLists,
     RocInvertedLists,
+    WaveletTreeInvertedLists,
 )
 
 
@@ -38,7 +41,8 @@ def small(tmp_path_factory):
     jidx.add(xb)
     path = tmp_path_factory.mktemp("default_device") / "index.npz"
     save_index(path, jidx)
-    return SimpleNamespace(xb=xb, path=path, il=load_index(path, device="cpu").invlists)
+    adj = np.array([[1, 2, -1], [0, -1, -1], [-1, -1, -1], [0, 1, 2]], np.int32)
+    return SimpleNamespace(xb=xb, path=path, il=load_index(path, device="cpu").invlists, adj=adj)
 
 
 # each entry point → the device its result lives on, given the keyword
@@ -56,6 +60,16 @@ ENTRY_POINTS = {
         np.arange(1, 60, dtype=np.uint64), 3, **kw)[0].states.head.device,
     "build_nsg": lambda s, **kw: build_nsg(s.xb, R=8, **kw)[0].device,
     "Graph": lambda s, **kw: Graph(np.full((4, 3), -1, np.int32), **kw).device,
+    "PackedBitsInvertedLists": lambda s, **kw: PackedBitsInvertedLists(s.il, **kw).packed.words.device,
+    "EliasFanoInvertedLists": lambda s, **kw: EliasFanoInvertedLists(s.il, **kw).ef.low_words.device,
+    "WaveletTreeInvertedLists-0":
+        lambda s, **kw: WaveletTreeInvertedLists(s.il, wt_type=0, **kw).wt.words.device,
+    "WaveletTreeInvertedLists-1":
+        lambda s, **kw: WaveletTreeInvertedLists(s.il, wt_type=1, **kw).wt.classes.device,
+    # a graph container lives on its graph's device: the card for a numpy
+    # adjacency
+    "CompactBitGraph": lambda s, **kw: CompactBitGraph(Graph(s.adj, **kw)).words.device,
+    "EliasFanoGraph": lambda s, **kw: EliasFanoGraph(Graph(s.adj, **kw)).ef.low_words.device,
 }
 
 

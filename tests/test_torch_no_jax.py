@@ -4,10 +4,12 @@ The machine with the card has no jax, and the JAX package's ``__init__``
 imports jax and turns on x64 mode, so no module of the port may import
 either. A subprocess blocks ``jax`` in ``sys.modules``, imports every module
 of the port, builds a tiny ROC-compressed IVF index on the CPU and searches
-it, builds a tiny IVF-PQ index and searches it with the interleaved ROC
-container through both PQ scans, runs the host and native ROC codecs, builds
-a tiny NSG graph and searches it with its three containers, and runs the two
-probes. The JAX package is imported here only to compare with.
+it, builds the packed-bits, Elias-Fano and wavelet-tree (plain and RRR)
+containers over it and searches with each through both translates, builds a
+tiny IVF-PQ index and searches it with the interleaved ROC container through
+both PQ scans, runs the host and native ROC codecs, builds a tiny NSG graph
+and searches it with its five containers, and runs the two probes. The JAX
+package is imported here only to compare with.
 """
 
 import ast
@@ -45,6 +47,13 @@ assert torch.equal(I0.sort(1).values, I1.sort(1).values)
 assert torch.allclose(D0, D1, rtol=1e-4, atol=1e-3)
 assert int(I1.min()) >= 0 and int(I1.max()) < 600
 
+from vector_db_id_compression_tpu_torch.store.invlists import AVAILABLE_COMPRESSED_IVFS
+for name in ("packed-bits", "elias-fano", "wavelet-tree", "wavelet-tree-1"):
+    index.replace_invlists(AVAILABLE_COMPRESSED_IVFS[name](index.invlists, device="cpu"))
+    for one_by_one in (True, False):
+        Dc, Ic = index.search_defer_id_decoding(xq, 5, nprobe=2, decode_1by1=one_by_one)
+        assert torch.equal(Ic, I0) and torch.equal(Dc, D0), name
+
 from vector_db_id_compression_tpu_torch import native
 from vector_db_id_compression_tpu_torch.codecs.roc import roc_decode, roc_encode
 from vector_db_id_compression_tpu_torch.search import ivf
@@ -75,11 +84,12 @@ assert (native.roc_decode_lists(heads, stacks, lens, [len(ids)], [10])[0] == ids
 from vector_db_id_compression_tpu_torch.ops.probes import ProbeDecodeStep, ProbeGather
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
 from vector_db_id_compression_tpu_torch.search.nsg import build_nsg, search_graph
-from vector_db_id_compression_tpu_torch.store.graph import RocBlockGraph, RocGraph
+from vector_db_id_compression_tpu_torch.store.graph import (CompactBitGraph, EliasFanoGraph,
+                                                           RocBlockGraph, RocGraph)
 
 g, medoid = build_nsg(xb, R=8, device="cpu")
 Dg, Ig = search_graph_device(g, xb, xq, 5, entry=medoid)
-for c in (RocGraph(g), RocBlockGraph(g, block=4)):
+for c in (RocGraph(g), RocBlockGraph(g, block=4), CompactBitGraph(g), EliasFanoGraph(g)):
     D2, I2 = search_graph_device(c, xb, xq, 5, entry=medoid)
     assert torch.equal(I2, Ig) and torch.equal(D2, Dg)
 Dh, Ih, _ = search_graph(g, xb, xq, 5, entry=medoid)

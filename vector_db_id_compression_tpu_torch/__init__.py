@@ -6,20 +6,24 @@ deferred id decoding, and of the neighbour lists of an NSG graph, searched
 with the decode inside the traversal, on one NVIDIA H100. The sub-layout
 mirrors the JAX package so that each module's counterpart has the same path:
 
-  core/    MT19937 initial-bits pool, the host rANS state machine and the
-           order statistics (numpy and Python ints)
+  core/    MT19937 initial-bits pool, the host rANS state machine, the
+           order statistics (numpy and Python ints) and the bit-vector
+           plumbing (packers, popcount, rank/select directories; torch)
   codecs/  ROC precision rules, the host ROC codec (the exact oracle), the
            lane-batched torch ROC codec (per list and chained; the plain
-           version of the ROC kernels) and interleaved ROC
+           version of the ROC kernels), interleaved ROC, and the other id
+           codecs in plain torch: packed bits, Elias-Fano, the wavelet tree
+           and RRR-compressed bit planes
   native/  the threaded C++ host ROC codec (g++ at first use, ctypes)
   ops/     the hand-written CUDA kernels (``csrc/``): build, binding, wrappers;
            the ROC encode and decode kernels and two decode-step probes
-  store/   size buckets, the inverted-list containers (uncompressed, ROC,
-           interleaved ROC) and the graph containers (dense, per-node ROC,
+  store/   size buckets, the inverted-list containers (uncompressed, packed
+           bits, ROC, Elias-Fano, wavelet tree, interleaved ROC) and the graph
+           containers (dense, compact bits, Elias-Fano, per-node ROC,
            chained-block ROC)
   search/  k-means, the product quantizer, ``IndexIVF`` (flat and PQ
-           storage, flat quantizer), NSG construction and the host and
-           device best-first graph searches
+           storage, flat quantizer; grouped or random-access translate), NSG
+           construction and the host and device best-first graph searches
 
 The package imports torch and numpy only; it never imports jax or the JAX
 package. The CUDA kernels are compiled with ``nvcc`` at first use

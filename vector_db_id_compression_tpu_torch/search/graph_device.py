@@ -1,7 +1,7 @@
 """Device-resident best-first graph search.
 
 Port of the JAX package's ``search/graph_device.py`` for the dense graph and
-the two ROC containers. The candidate pools, the visited bitsets and the
+every compressed container. The candidate pools, the visited bitsets and the
 frontier all live on the graph's device; the JAX ``lax.while_loop`` becomes a
 Python loop of torch ops that runs until no query has an unexpanded finite
 candidate, capped at ``max_iters`` (one host sync per hop reads that
@@ -105,7 +105,7 @@ def search_graph_device(graph, xb, xq, k: int, L: Optional[int] = None, entry=0,
                         max_iters: int = 0):
     """Device-resident counterpart of search_graph (host loop): returns
     (D f32[nq, k], I i64[nq, k]) on the graph's device. ``graph`` is a
-    ``Graph``, ``RocGraph`` or ``RocBlockGraph``; pass ``xb`` as a tensor on
+    ``Graph`` or any container of ``store/graph.py``; pass ``xb`` as a tensor on
     that device to avoid a copy per call. ``entry`` is one node or one per
     query (i64[nq]); ``max_iters`` caps the hops (0 → 4 * L + 32), and a
     search that reaches the cap warns and returns the pools as they stand."""

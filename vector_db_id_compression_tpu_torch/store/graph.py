@@ -1,10 +1,14 @@
-"""Graph (NSG-style) adjacency containers with ROC-compressed neighbour lists.
+"""Graph (NSG-style) adjacency containers with compressed neighbour lists.
 
-Port of the JAX package's ``store/graph.py`` for the dense graph and the two
-ROC containers (reference alt-graph-index/altid_impl.h):
+Port of the JAX package's ``store/graph.py`` (reference
+alt-graph-index/altid_impl.h):
 
   Graph          dense i32[N, K] adjacency, rows -1-padded at the end (the
                  data model of faiss::nsg::Graph<int32_t>)
+  CompactBitGraph  C14: K fixed-width fields per node, terminator value N
+                 after the last neighbour (altid_impl.cpp:20-51)
+  EliasFanoGraph C15: each node's sorted neighbours Elias-Fano coded
+                 (altid_impl.cpp:53-101); decode gives them ascending
   RocGraph       C16: one ROC state per node over its neighbour set
                  (altid_impl.cpp:103-165); decoded with the per-list decode
                  kernel
@@ -15,15 +19,21 @@ ROC containers (reference alt-graph-index/altid_impl.h):
                  rounding are paid once per block instead of once per node;
                  fetching one node decodes its whole block.
 
-Construction runs on the graph's device with no per-node Python loop: each
-row is sorted with -1 masked to the end, duplicate neighbours are found by
-comparing neighbours in the sorted row, and the precisions are taken
-vectorized; one encode launch then encodes every lane. The streams are those
-of the JAX containers bit for bit (tests/test_torch_graph.py).
+Construction runs on the graph's device with no per-node Python loop (the
+JAX package loops over the nodes): the compact graph packs every row in one
+pass; each row is sorted with -1 masked to the end, then Elias-Fano coded
+over the whole table in one pass, or, for ROC, checked for duplicate
+neighbours and given its precision, vectorized, before one encode launch
+encodes every lane. Words and streams are those of the JAX containers per
+node, bit for bit (tests/test_torch_graph.py, tests/test_torch_containers.py).
 
 Size accounting matches the reference formulas:
-  ROC:  sum over lanes of (8 + 4 * stack_len) bytes, empty nodes included;
-        overhead N * ceil(log2 N) / 8 bytes (the degrees)
+  compact: N * stride bytes, stride = (K*bits+7)/8, bits from
+           `while((1 << bits) < N+1)`; no overhead (the terminator)
+  EF:      sum of the nodes' high + low bits / 8; overhead
+           2 * N * ceil(log2 N) / 8 bytes (degrees and max ids)
+  ROC:     sum over lanes of (8 + 4 * stack_len) bytes, empty nodes included;
+           overhead N * ceil(log2 N) / 8 bytes (the degrees)
 """
 
 from __future__ import annotations
@@ -33,7 +43,10 @@ import math
 import torch
 
 from ..codecs import roc_device as rd
+from ..codecs.elias_fano import ef_decode_all, ef_encode_rows
+from ..codecs.packed_bits import packed_width
 from ..codecs.roc import precision_for_max_ids_safe
+from ..core.bits import fields_at, pack_fields
 from ..device import resolve
 from ..ops.roc_decode import RocDecoder
 from ..ops.roc_encode import RocEncoder
@@ -66,14 +79,14 @@ class Graph:
 
 
 class CompressedGraph:
-    """Base for compressed adjacency containers."""
+    """Base for compressed adjacency containers, on their graph's device."""
 
     def __init__(self, graph: Graph):
         self.N, self.K = graph.N, graph.K
         self.device = graph.device
         self.degrees = graph.degrees.clone()
-        logn = math.ceil(math.log2(self.N)) if self.N > 1 else 0
-        self.overhead_in_bytes = int(self.N * logn / 8)  # the degrees
+        self.logn = math.ceil(math.log2(self.N)) if self.N > 1 else 0
+        self.overhead_in_bytes = int(self.N * self.logn / 8)  # the degrees
         self.compressed_ids_size_in_bytes = 0
 
     def get_neighbors(self, i: int) -> torch.Tensor:
@@ -88,6 +101,55 @@ class CompressedGraph:
         counts = self.degrees[nodes]
         cols = torch.arange(self.K, device=self.device)
         return torch.where(cols[None, :] < counts[:, None], vals, -1).to(torch.int32), counts
+
+
+class CompactBitGraph(CompressedGraph):
+    """Fixed-width edges: K fields of ``packed_width(N)`` bits per node, the
+    value N after the last neighbour of a node with fewer than K
+    (altid_impl.cpp:20-51), in ceil(K*bits/32) words per node so that the
+    byte accounting matches the reference stride. Packed in one pass."""
+
+    def __init__(self, graph: Graph):
+        super().__init__(graph)
+        self.overhead_in_bytes = 0  # the terminator marks each degree
+        self.bits = packed_width(self.N)  # while((1<<bits) < N+1)
+        self.stride = (self.K * self.bits + 7) // 8
+        W = max((self.K * self.bits + 31) // 32, 1)
+        cols = torch.arange(self.K, device=self.device)[None, :]
+        deg = self.degrees[:, None]
+        vals = torch.where(cols < deg, graph.adjacency.to(torch.int64),
+                           torch.where(cols == deg, self.N, 0))
+        self.words = pack_fields(vals, self.bits, W)
+        self.compressed_ids_size_in_bytes = self.N * self.stride
+
+    def get_neighbors_batch(self, nodes):
+        """(neighbours i32[Q, K] padded with -1, counts i32[Q]): one field
+        read per slot."""
+        nodes = torch.as_tensor(nodes, dtype=torch.int64, device=self.device)
+        cols = torch.arange(self.K, device=self.device)[None, :]
+        return self._mask(fields_at(self.words, nodes[:, None], cols, self.bits), nodes)
+
+
+class EliasFanoGraph(CompressedGraph):
+    """Each node's neighbours sorted and Elias-Fano coded, one row per node,
+    encoded in one pass (altid_impl.cpp:53-101); a fetch decodes the nodes'
+    rows, ascending (the order change is search-neutral)."""
+
+    def __init__(self, graph: Graph):
+        super().__init__(graph)
+        valid = graph.adjacency >= 0
+        srt = torch.where(valid, graph.adjacency.to(torch.int64),
+                          torch.iinfo(torch.int64).max).sort(dim=1).values
+        self.ef = ef_encode_rows(srt, self.degrees)
+        self.compressed_ids_size_in_bytes = int(self.ef.size_in_bits.sum()) // 8
+        # degrees + per-node max_id (altid_impl.cpp:56-57)
+        self.overhead_in_bytes = int(2 * self.N * self.logn / 8)
+
+    def get_neighbors_batch(self, nodes):
+        """(neighbours i32[Q, K] padded with -1, counts i32[Q]): one decode
+        of the nodes' rows."""
+        nodes = torch.as_tensor(nodes, dtype=torch.int64, device=self.device)
+        return self._mask(ef_decode_all(self.ef.rows(nodes), self.K), nodes)
 
 
 def neighbour_table(adjacency: torch.Tensor, empty_precision: int):
