@@ -12,7 +12,9 @@ interleaved chunk lanes; and the flat index with the paper's other id codecs
 graph path: an NSG graph of degree R = 32 over the same database, searched on
 the card with its adjacency dense, ROC-compressed per node, ROC-compressed in
 chained blocks of 16 nodes, packed in fixed-width fields and Elias-Fano
-coded, decoded inside the traversal. Phases:
+coded, decoded inside the traversal. Then every index, container and graph
+of those paths goes through the artifact format: saved, stamped, verified,
+loaded onto the card and searched again. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -52,13 +54,27 @@ coded, decoded inside the traversal. Phases:
               search (search_graph, a separate walk) must give
               the same I on 32 queries; then bits/edge, hops, recall and
               search times
-  8. probes   the two decode-step probes against their plain versions
-  9. chain    the chain probe (the codec's serial chain, no rank or select
+  8. serialize  the artifact format on what the earlier phases built: the
+              flat index (save_index) with its ROC, packed-bits, Elias-Fano
+              and both wavelet-tree containers, the PQ16 index with its
+              RocInvertedLists and interleaved containers, and the five NSG
+              graphs (save_invlists, save_graph); each file stamped and
+              verified, loaded onto the card (the index into a fresh
+              IndexIVF, each container swapped in with replace_invlists) and
+              searched: I and D identical to the search before the save, the
+              loaded ROC states equal to the built ones, and each loaded
+              object written again byte-equal to its file, or the run fails;
+              the decode kernel runs on the loaded states; then file bytes,
+              save, stamp, verify, load and search ms (a loaded graph's
+              beside its built graph's, timed in turns), and bits/id (or
+              bits/edge) after the round trip
+  9. probes   the two decode-step probes against their plain versions
+ 10. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
- 10. timing   each kernel beside its plain version at its paths' shapes:
+ 11. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
               entries, and at the graph's (per node and chained), bit-equal
               or the run fails; the native host codec over the PQ index's
@@ -82,9 +98,11 @@ Usage: python3 chip_smoke.py [--seed N]
 """
 
 import argparse
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -507,7 +525,7 @@ def phase_codecs(index, roc, xq):
     index's lists; each must recover every list and give the uncompressed
     search's I and D exactly with either translate (the lists are ascending,
     so no container reorders one). Leaves ``roc`` active, as [timing] reads
-    the ROC search's launches."""
+    the ROC search's launches. Returns the containers by name."""
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.store.invlists import AVAILABLE_COMPRESSED_IVFS
@@ -528,7 +546,7 @@ def phase_codecs(index, roc, xq):
     # ---- this path runs no hand-written kernel (plain torch, ROADMAP Queue
     # A 4); the ROC kernels' counts over it stay 0
     RocEncoder.launches = RocDecoder.launches = 0
-    out = {}
+    out, built = {}, {}
     for name in ("packed-bits", "elias-fano", "wavelet-tree", "wavelet-tree-1"):
         t_build, c = cuda_ms(lambda: AVAILABLE_COMPRESSED_IVFS[name](il, device=cuda))
         for lo in range(0, NLIST, 128):
@@ -557,7 +575,7 @@ def phase_codecs(index, roc, xq):
         r["search_ms"] = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
         profile_search(index, xq, f"flat {name}")
         out[name] = r
-        del c
+        built[name] = c
     torch.cuda.synchronize()
     launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
     # ----
@@ -580,6 +598,7 @@ def phase_codecs(index, roc, xq):
             f"{ops(r, 'translate_grouped')}; the select alone {ops(r, 'select')}; search "
             f"{r['search_ms']:.2f} ms (CUDA-event medians of 5 after a warm-up; launches and "
             f"device time from torch.profiler)")
+    return built
 
 
 def search_times(index, xq, what: str):
@@ -725,10 +744,12 @@ def recalls(I, I_bf):
 
 
 def phase_graph(xb, xq, I_bf):
-    """NSG R=32 over the [main] database, the two ROC graphs, and the search
-    with all three containers, through the user-facing entry points. Returns
-    (the graph, the two ROC graphs, this phase's launch counts, the nearest
-    node found per query: one fetch's worth of nodes for the timing)."""
+    """NSG R=32 over the [main] database, the two ROC graphs, the compact
+    and Elias-Fano graphs, and the search with all five containers, through
+    the user-facing entry points. Returns (the five containers by name, the
+    medoid, the dense graph's search (D, I), this phase's launch counts, the
+    nearest node found per query: one fetch's worth of nodes for the timing,
+    the chained kernels' launches per search or build)."""
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
@@ -814,7 +835,166 @@ def phase_graph(xb, xq, I_bf):
     log("[graph] search ms (CUDA events, median of 5 after a warm-up): "
         + ", ".join(f"{name} {t:.2f}" for name, t in times.items()))
     per_unit["roc_decode"] = hops
-    return g, roc, blk, launches, I0[:, 0], per_unit
+    return dict(containers), medoid, (D0, I0), launches, I0[:, 0], per_unit
+
+
+def roc_states_equal(loaded, built) -> bool:
+    """Two ROC decoders hold the same streams: heads, stack lengths, MT
+    counters, lane lengths and precisions equal, and each lane's stack words
+    up to its length (past it an encoder may leave popped words)."""
+    a, b = loaded.states, built.states
+    if a.stack.shape != b.stack.shape:
+        return False
+    cols = torch.arange(a.stack.shape[1], device=a.stack.device)[None, :]
+    live = cols < b.stack_len[:, None]
+    pairs = ((a.head, b.head), (a.stack_len, b.stack_len), (a.mt_ctr, b.mt_ctr),
+             (loaded.lengths, built.lengths), (loaded.precision, built.precision),
+             (torch.where(live, a.stack, 0), torch.where(live, b.stack, 0)))
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def round_trip(path: Path, what: str, obj, save, load):
+    """``save(path, obj)``, stamp, verify, ``load(path)``; the loaded object
+    written again must equal the first file byte for byte. Deletes the
+    file. Returns (its bytes and the host-clock ms of save, stamp,
+    verify and load, the load synchronised with the card; the loaded
+    object)."""
+    from vector_db_id_compression_tpu_torch.utils import stamp_artifact, verify_artifact
+
+    t0 = time.perf_counter()
+    save(path, obj)
+    t_save = time.perf_counter()
+    first = path.read_bytes()
+    t1 = time.perf_counter()
+    stamp_artifact(path)
+    t_stamp = time.perf_counter()
+    ok = verify_artifact(path)
+    t_verify = time.perf_counter()
+    if not ok:
+        raise AssertionError(f"{what}: verify_artifact is False after stamp_artifact")
+    nbytes = path.stat().st_size
+    t2 = time.perf_counter()
+    loaded = load(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter()
+    buf = io.BytesIO()
+    save(buf, loaded)
+    if buf.getvalue() != first:
+        raise AssertionError(f"{what}: the loaded object written again differs from its file")
+    path.unlink()
+    return {"bytes": nbytes, "save_ms": (t_save - t0) * 1e3, "stamp_ms": (t_stamp - t1) * 1e3,
+            "verify_ms": (t_verify - t_stamp) * 1e3, "load_ms": (t_load - t2) * 1e3}, loaded
+
+
+def phase_serialize(ivfs, graphs, medoid, graph_ref, xb, xq):
+    """The artifact format on what the earlier phases built. ``ivfs``:
+    (name, index, {container name: (container, the decode_1by1 values its
+    phase searched with)}); ``graphs``: name → graph container;
+    ``graph_ref``: the dense graph's search (D, I), which every graph gave
+    in [graph]. Each index is saved (save_index) and loaded into a fresh
+    IndexIVF on the card, each container saved and loaded and swapped into
+    it, each graph saved and loaded; each must search as before the save.
+    Returns this phase's launch counts: the decode kernel runs on the loaded
+    states only."""
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
+    from vector_db_id_compression_tpu_torch.search.ivf import load_index, save_index
+    from vector_db_id_compression_tpu_torch.store.serialize import (
+        load_graph, load_invlists, save_graph, save_invlists)
+
+    cuda = torch.device("cuda")
+    # the searches before the save, with the built containers, and their ms
+    before, before_ms = {}, {}
+    for iname, index, containers in ivfs:
+        active = index.active
+        for cname, (c, modes) in containers.items():
+            index.replace_invlists(c)
+            before[iname, cname] = {m: index.search_defer_id_decoding(
+                xq, k=K, nprobe=NPROBE, decode_1by1=m) for m in modes}
+            before_ms[iname, cname] = median_ms(lambda: index.search_defer_id_decoding(
+                xq, k=K, nprobe=NPROBE, decode_1by1=modes[0]))
+        index.replace_invlists(active)
+    xb_d, xq_d = torch.from_numpy(xb).to(cuda), torch.from_numpy(xq).to(cuda)
+    rows = []
+    # ---- the serialize path; the kernels' launch counts are read from this
+    # window only
+    RocEncoder.launches = RocEncoder.chained_launches = 0
+    RocDecoder.launches = RocDecoder.chained_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "artifact.npz"
+        for iname, index, containers in ivfs:
+            r, loaded_index = round_trip(path, f"{iname} index", index, save_index,
+                                         lambda p: load_index(p, device=cuda))
+            rows.append((f"{iname} index ({index.ntotal} ids)", r, ""))
+            for cname, (c, modes) in containers.items():
+                what = f"{iname} {cname}"
+                r, lc = round_trip(path, what, c, save_invlists,
+                                   lambda p: load_invlists(p, device=cuda))
+                if hasattr(c, "decoder") and not roc_states_equal(lc.decoder, c.decoder):
+                    raise AssertionError(f"{what}: the loaded ROC states differ from the built")
+                loaded_index.replace_invlists(lc)
+                for m, (D0, I0) in before[iname, cname].items():
+                    D1, I1 = loaded_index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE,
+                                                                   decode_1by1=m)
+                    if not (torch.equal(I1, I0) and torch.equal(D1, D0)):
+                        raise AssertionError(f"{what} (decode_1by1={m}): the loaded index's "
+                                             "search differs from the search before the save")
+                r["search_ms"] = median_ms(lambda: loaded_index.search_defer_id_decoding(
+                    xq, k=K, nprobe=NPROBE, decode_1by1=modes[0]))
+                r["built_ms"] = before_ms[iname, cname]
+                bits = [x.compressed_ids_size_in_bytes * 8 / index.ntotal for x in (c, lc)]
+                if bits[0] != bits[1] or lc.overhead_in_bytes != c.overhead_in_bytes:
+                    raise AssertionError(f"{what}: bits/id {bits} differ after the round trip")
+                rows.append((what, r, f"bits/id {bits[1]:.4f} (before the save {bits[0]:.4f})"))
+                del lc
+            del loaded_index
+        edges = int(graphs["Graph"].degrees.sum())
+        for gname, gc in graphs.items():
+            r, lg = round_trip(path, f"graph {gname}", gc, save_graph,
+                               lambda p: load_graph(p, device=cuda))
+            if hasattr(gc, "decoder") and not roc_states_equal(lg.decoder, gc.decoder):
+                raise AssertionError(f"graph {gname}: the loaded ROC states differ from the built")
+            D1, I1 = search_graph_device(lg, xb_d, xq_d, k=K, entry=medoid)
+            if not (torch.equal(I1, graph_ref[1]) and torch.equal(D1, graph_ref[0])):
+                raise AssertionError(f"graph {gname}: the loaded graph's search differs")
+            # the loaded and the built graph's search in turns: built, loaded,
+            # loaded, built; the built graph's launches do not count (they
+            # decode the built states)
+            t = []
+            for x in (gc, lg, lg, gc):
+                counts = RocDecoder.launches, RocDecoder.chained_launches
+                t.append(median_ms(lambda: search_graph_device(x, xb_d, xq_d, k=K,
+                                                               entry=medoid)))
+                if x is gc:
+                    RocDecoder.launches, RocDecoder.chained_launches = counts
+            r["search_ms"], r["built_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            size = [getattr(x, "compressed_ids_size_in_bytes", 4 * x.N * x.K) for x in (gc, lg)]
+            if size[0] != size[1]:
+                raise AssertionError(f"graph {gname}: size {size} differs after the round trip")
+            rows.append((f"graph {gname}", r, f"bits/edge {size[1] * 8 / edges:.4f}"
+                         + (" (the dense int32 table)" if gname == "Graph" else "")))
+            del lg
+    torch.cuda.synchronize()
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches,
+                "roc_encode_chained": RocEncoder.chained_launches,
+                "roc_decode_chained": RocDecoder.chained_launches}
+    # ----
+    if launches["roc_decode"] < 1 or launches["roc_decode_chained"] < 1:
+        raise AssertionError(f"the decode kernel did not run on the loaded states: {launches}")
+    log(f"[serialize] {len(rows)} artifacts (the format of the JAX package, MAGIC "
+        f"vdbidc-tpu-v1): every verify_artifact True after stamp_artifact; every loaded "
+        f"index, container and graph searched as before the save (I and D identical, both "
+        f"translates where the codec has two), loaded ROC states == built, each loaded object "
+        f"written again == its file; launches {launches}")
+    for what, r, extra in rows:
+        log(f"[serialize] {what}: {r['bytes']} bytes; save {r['save_ms']:.1f}, stamp "
+            f"{r['stamp_ms']:.1f}, verify {r['verify_ms']:.1f}, load {r['load_ms']:.1f} ms "
+            f"(host clock, the load synchronised with the card)"
+            + (f"; search {r['search_ms']:.2f} ms loaded, {r['built_ms']:.2f} built (CUDA-event "
+               f"medians of 5 after a warm-up; {'in turns' if 'graph' in what else 'the built before the save'})"
+               if "search_ms" in r else "") + (f"; {extra}" if extra else ""))
+    return launches
 
 
 def phase_probes(seed: int):
@@ -1185,10 +1365,18 @@ def main() -> None:
     log(f"[main] data: {NT} train, {NB} database, {NQ} query vectors of d={D} "
         f"(seed {args.seed}) in {time.perf_counter() - t0:.1f} s on the host")
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
-    phase_codecs(index, roc, xq)
+    codecs = phase_codecs(index, roc, xq)
     pq_index, pq_roc, pq_il, pq_launches = phase_pq(xt, xb, xq, I_bf,
                                                     int(index.invlists.lengths.max()))
-    g, roc_g, blk, graph_launches, nodes, per_unit = phase_graph(xb, xq, I_bf)
+    graphs, medoid, graph_ref, graph_launches, nodes, per_unit = phase_graph(xb, xq, I_bf)
+    g, roc_g, blk = graphs["Graph"], graphs["RocGraph"], graphs["RocBlockGraph"]
+    ser_launches = phase_serialize(
+        [("flat", index, {"ROC": (roc, (None,)),
+                          **{name: (c, (True, False)) for name, c in codecs.items()}}),
+         ("PQ", pq_index, {"RocInvertedLists": (pq_roc, (None,)),
+                           "interleaved": (pq_il, (None,))})],
+        graphs, medoid, graph_ref, xb, xq)
+    del codecs
     probes = phase_probes(args.seed)
     chain = phase_chain(index, roc)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
@@ -1197,11 +1385,14 @@ def main() -> None:
     kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes
     # a kernel that several paths run counts its launches in each, and its
     # error is the largest of its paths'
-    by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches}
+    by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches,
+                "serialize": ser_launches}
+    for entry in kernels[:4]:
+        name_ = entry["name"]
+        entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items() if name_ in n}
+        entry["launches"] = sum(entry["launches_by_phase"].values())
     for entry in kernels[:2]:
         name_ = entry["name"]
-        entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items()}
-        entry["launches"] = sum(entry["launches_by_phase"].values())
         for extra in (per_node[name_], per_chunk[name_]):
             entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
     entries = {e["name"]: e for e in kernels}

@@ -39,6 +39,12 @@ from vector_db_id_compression_tpu_torch.store.invlists import (
     InvertedLists,
     RocInvertedLists,
 )
+from vector_db_id_compression_tpu_torch.store.serialize import (
+    load_graph,
+    load_invlists,
+    save_graph,
+    save_invlists,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +413,42 @@ def test_graph_codec_containers_on_card_equal_cpu(cuda):
         assert torch.equal(nb.cpu(), nb_cpu) and torch.equal(cnt.cpu(), cnt_cpu)
         D1, I1 = search_graph_device(card, xb.to(cuda), xq.to(cuda), 10, entry=1)
         assert torch.equal(I1, I0) and torch.equal(D1, D0)
+
+
+def test_saved_and_loaded_on_card(cuda, tmp_path):
+    """A ROC and an interleaved container and a RocBlockGraph built on the
+    card, saved, and loaded onto the card decode through the kernels to the
+    built ones' ids (the loaded states are the built ones)."""
+    rng = np.random.default_rng(13)
+    nlist = 32
+    assign = rng.integers(1, nlist, 20000)
+    assign[:3000] = 4  # a list chunked by the interleaved container
+    il = InvertedLists(nlist, 2)
+    for ln in range(nlist):
+        ids = np.flatnonzero(assign == ln).astype(np.uint64)
+        il.add_entries(ln, ids, rng.integers(0, 256, 2 * len(ids)).astype(np.uint8))
+    lists = torch.arange(nlist, device=cuda)
+    for make in (RocInvertedLists, InterleavedRocInvertedLists):
+        built = make(il, device=cuda)
+        save_invlists(tmp_path / "c.npz", built)
+        before = RocDecoder.launches
+        loaded = load_invlists(tmp_path / "c.npz", device=cuda)
+        assert loaded.decoder.device.type == "cuda"
+        for got, want in zip(loaded.decode_lists(lists), built.decode_lists(lists)):
+            assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        assert RocDecoder.launches > before
+        assert loaded.compressed_ids_size_in_bytes == built.compressed_ids_size_in_bytes
+        for ln in range(nlist):
+            np.testing.assert_array_equal(loaded.get_codes(ln), built.get_codes(ln))
+    xb = torch.from_numpy(rng.standard_normal((2000, 16)).astype(np.float32)).to(cuda)
+    g, _ = build_nsg(xb, R=12)
+    blk = RocBlockGraph(g, block=16)
+    save_graph(tmp_path / "g.npz", blk)
+    before = RocDecoder.chained_launches
+    loaded = load_graph(tmp_path / "g.npz", device=cuda)
+    nodes = torch.arange(g.N, device=cuda)
+    for got, want in zip(loaded.get_neighbors_batch(nodes), blk.get_neighbors_batch(nodes)):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert RocDecoder.chained_launches > before

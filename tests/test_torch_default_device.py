@@ -21,6 +21,8 @@ from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
 from vector_db_id_compression_tpu_torch.search.nsg import build_knn_graph, build_nsg
 from vector_db_id_compression_tpu_torch.search.pq import ProductQuantizer
 from vector_db_id_compression_tpu_torch.store.graph import CompactBitGraph, EliasFanoGraph, Graph
+from vector_db_id_compression_tpu_torch.store.serialize import (load_graph, load_invlists,
+                                                                save_graph, save_invlists)
 from vector_db_id_compression_tpu_torch.store.invlists import (
     EliasFanoInvertedLists,
     InterleavedRocInvertedLists,
@@ -32,8 +34,8 @@ from vector_db_id_compression_tpu_torch.store.invlists import (
 
 @pytest.fixture(scope="module")
 def small(tmp_path_factory):
-    """A few vectors, a JAX index saved as .npz, and its lists loaded on the
-    CPU."""
+    """A few vectors, a JAX index saved as .npz, its lists loaded on the
+    CPU, and a packed-bits container and a compact graph saved by the port."""
     rng = np.random.default_rng(4)
     xb = rng.standard_normal((200, 8)).astype(np.float32)
     jidx = JaxIndexIVF(8, 4, storage="flat")
@@ -42,7 +44,12 @@ def small(tmp_path_factory):
     path = tmp_path_factory.mktemp("default_device") / "index.npz"
     save_index(path, jidx)
     adj = np.array([[1, 2, -1], [0, -1, -1], [-1, -1, -1], [0, 1, 2]], np.int32)
-    return SimpleNamespace(xb=xb, path=path, il=load_index(path, device="cpu").invlists, adj=adj)
+    il = load_index(path, device="cpu").invlists
+    il_path, graph_path = path.with_name("packed.npz"), path.with_name("graph.npz")
+    save_invlists(il_path, PackedBitsInvertedLists(il, device="cpu"))
+    save_graph(graph_path, CompactBitGraph(Graph(adj, device="cpu")))
+    return SimpleNamespace(xb=xb, path=path, il=il, adj=adj, il_path=il_path,
+                           graph_path=graph_path)
 
 
 # each entry point → the device its result lives on, given the keyword
@@ -51,6 +58,8 @@ ENTRY_POINTS = {
     "IndexIVF": lambda s, **kw: IndexIVF(8, 8, **kw).device,
     "IndexIVF-pq": lambda s, **kw: IndexIVF(8, 8, storage="pq", pq_m=2, **kw).pq.device,
     "load_index": lambda s, **kw: load_index(s.path, **kw).centroids.device,
+    "load_invlists": lambda s, **kw: load_invlists(s.il_path, **kw).packed.words.device,
+    "load_graph": lambda s, **kw: load_graph(s.graph_path, **kw).words.device,
     "ProductQuantizer": lambda s, **kw: ProductQuantizer(8, 2, **kw).device,
     "train_kmeans": lambda s, **kw: train_kmeans(s.xb, 4, niter=1, **kw).device,
     "RocInvertedLists": lambda s, **kw: RocInvertedLists(s.il, **kw).decoder.device,

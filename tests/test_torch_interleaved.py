@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from vector_db_id_compression_tpu.codecs import roc_interleaved as jri
+from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.store import invlists as jinv
 from vector_db_id_compression_tpu_torch.codecs import roc_interleaved as tri
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe, roc_encode
+from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
 from vector_db_id_compression_tpu_torch.store import invlists as tinv
 
 
@@ -212,3 +214,30 @@ def test_auto_policy_lane_counts():
         assert c.n_lanes[ln] == (-(-n // t) if n > (3 * t) // 2 else 1)
     with pytest.raises(ValueError):
         tinv.InterleavedRocInvertedLists(til, interleave=0, device="cpu")
+
+
+def test_empty_interleaved_container_searches_as_jax():
+    """The interleaved container over lists without ids builds as JAX's
+    (sizes 0 and 0, no lanes) and an index searches it: every slot empty."""
+    rng = np.random.default_rng(2)
+    xb = rng.standard_normal((64, 8)).astype(np.float32)
+    jidx = JaxIndexIVF(8, 16, storage="flat")
+    jidx.train(xb)
+    tidx = IndexIVF(8, 16, device="cpu")
+    tidx.centroids = torch.from_numpy(np.array(jidx.centroids))
+    jc = jinv.InterleavedRocInvertedLists(jinv.InvertedLists(16, 32))
+    tc = tinv.InterleavedRocInvertedLists(tinv.InvertedLists(16, 32), device="cpu")
+    assert (tc.compressed_ids_size_in_bytes, tc.overhead_in_bytes) == (
+        jc.compressed_ids_size_in_bytes, jc.overhead_in_bytes) == (0, 0)
+    assert tc.decoder.states.head.shape == (0,) and not tc.n_lanes.any()
+    ids, lens = tc.decode_lists(torch.arange(16))
+    jids, jlens = jc.decode_lists(np.arange(16))
+    np.testing.assert_array_equal(ids.numpy().view(np.uint64), jids)
+    np.testing.assert_array_equal(lens.numpy(), jlens)
+    jidx.replace_invlists(jc)
+    tidx.replace_invlists(tc)
+    D_ref, I_ref = jidx.search_defer_id_decoding(xb[:5], 4, nprobe=3)
+    D, I = tidx.search_defer_id_decoding(xb[:5], 4, nprobe=3)
+    np.testing.assert_array_equal(I.numpy(), I_ref)
+    np.testing.assert_array_equal(D.numpy(), D_ref)
+    assert (I_ref == -1).all() and np.isinf(D_ref).all()

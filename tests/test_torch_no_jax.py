@@ -8,8 +8,10 @@ it, builds the packed-bits, Elias-Fano and wavelet-tree (plain and RRR)
 containers over it and searches with each through both translates, builds a
 tiny IVF-PQ index and searches it with the interleaved ROC container through
 both PQ scans, runs the host and native ROC codecs, builds a tiny NSG graph
-and searches it with its five containers, and runs the two probes. The JAX
-package is imported here only to compare with.
+and searches it with its five containers, saves and reloads the PQ index, the
+interleaved container (stamped and verified) and a chained ROC graph and
+searches them again, and runs the two probes. The JAX package is imported
+here only to compare with.
 """
 
 import ast
@@ -94,6 +96,26 @@ for c in (RocGraph(g), RocBlockGraph(g, block=4), CompactBitGraph(g), EliasFanoG
     assert torch.equal(I2, Ig) and torch.equal(D2, Dg)
 Dh, Ih, _ = search_graph(g, xb, xq, 5, entry=medoid)
 assert torch.equal(Ih, Ig) and torch.equal(Dh, Dg)
+import os, tempfile
+from vector_db_id_compression_tpu_torch.search.ivf import load_index, save_index
+from vector_db_id_compression_tpu_torch.store.serialize import (load_graph, load_invlists,
+                                                                save_graph, save_invlists)
+from vector_db_id_compression_tpu_torch.utils import stamp_artifact, verify_artifact
+
+with tempfile.TemporaryDirectory() as tmp:
+    save_index(os.path.join(tmp, "pq.npz"), pq)
+    pq2 = load_index(os.path.join(tmp, "pq.npz"), device="cpu")
+    path = os.path.join(tmp, "il.npz")
+    save_invlists(path, il)
+    stamp_artifact(path)
+    assert verify_artifact(path)
+    pq2.replace_invlists(load_invlists(path, device="cpu"))
+    Dp3, Ip3 = pq2.search(xq, 5, nprobe=2)
+    assert torch.equal(Ip3, Ip2) and torch.equal(Dp3, Dp2)
+    save_graph(os.path.join(tmp, "g.npz"), RocBlockGraph(g, block=4))
+    D3, I3 = search_graph_device(load_graph(os.path.join(tmp, "g.npz"), device="cpu"), xb, xq, 5,
+                                 entry=medoid)
+    assert torch.equal(I3, Ig) and torch.equal(D3, Dg)
 ones = torch.ones((4, 8), dtype=torch.int32)
 assert ProbeGather.run(ones, torch.zeros((4, 1), dtype=torch.int32), steps=5).tolist() == [[5]] * 4
 assert ProbeDecodeStep.run(ones, torch.zeros((1, 8), dtype=torch.int32), steps=6).shape == (6, 8)

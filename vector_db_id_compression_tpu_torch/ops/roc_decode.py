@@ -87,9 +87,10 @@ class RocDecoder:
         self.states = rd.RocStates(*(t.contiguous() for t in states))
         self.lengths = lengths.contiguous()
         self.precision = precision.contiguous()
-        # [L, S] views; S = 1 for one list per lane
-        self._len_table = self.lengths.reshape(L, -1)
-        self._prec_table = self.precision.reshape(L, -1)
+        # [L, S] views; S = 1 for one list per lane (L may be 0)
+        S = lengths.shape[1] if self.chained else 1
+        self._len_table = self.lengths.reshape(L, S)
+        self._prec_table = self.precision.reshape(L, S)
         self._layout = None  # the kernel's, at the first launch
         self.pool = pool.to(self.device).contiguous()
         self.n_max = n_max
@@ -161,8 +162,9 @@ class RocDecoder:
                 None if scratch is None else scratch.data_ptr(), ids.data_ptr(),
                 err.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
         check_launch(lib, code, "ROC decode")
-        if self.chained:
+        # with no lanes the entry point returns without a launch
+        if Q and self.chained:
             RocDecoder.chained_launches += 1
-        else:
+        elif Q:
             RocDecoder.launches += 1
         return ids, err

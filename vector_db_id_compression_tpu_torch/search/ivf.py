@@ -109,13 +109,11 @@ class IndexIVF:
 
     def __init__(self, d: int, nlist: int, storage: str = "flat", pq_m: int = 0,
                  nprobe: int = 1, quantizer: str = "flat", device=DEFAULT_DEVICE):
-        if storage not in ("flat", "pq") or quantizer != "flat":
-            raise NotImplementedError(
-                f"storage={storage!r}, quantizer={quantizer!r}: flat and PQ "
-                "storage with the flat quantizer are ported")
+        _check_ported(storage, quantizer)
         self.d = d
         self.nlist = nlist
         self.storage = storage
+        self.quantizer = quantizer
         self.nprobe = nprobe
         self.device = resolve(device)  # an unavailable device raises here
         self.pq = ProductQuantizer(d, pq_m, device=self.device) if storage == "pq" else None
@@ -329,8 +327,48 @@ class IndexIVF:
         return torch.from_numpy(out.reshape(*labels.shape, cs + ccs)).to(self.device)
 
 
+def _check_ported(storage: str, quantizer: str) -> None:
+    """Raise NotImplementedError for a storage or quantizer of the JAX
+    package that the port does not have yet, naming the ROADMAP.md item
+    that ports it."""
+    if storage == "qinco":
+        raise NotImplementedError("storage='qinco' is not ported yet (ROADMAP.md Queue A 5, "
+                                  "QINCo)")
+    if quantizer == "hnsw":
+        raise NotImplementedError("quantizer='hnsw' is not ported yet (ROADMAP.md Queue A 3, "
+                                  "HNSW)")
+    if storage not in ("flat", "pq") or quantizer != "flat":
+        raise ValueError(f"unknown storage={storage!r} or quantizer={quantizer!r}")
+
+
+def save_index(path, index: IndexIVF) -> None:
+    """Write the index as the JAX package's ``search.ivf.save_index`` does,
+    byte for byte: one .npz with the trained index and its uncompressed
+    inverted lists (none for an index that was trained only). Compressed id
+    containers are saved on their own (``store.serialize.save_invlists``)
+    and swapped in after ``load_index`` with ``replace_invlists``."""
+    _check_ported(index.storage, index.quantizer)
+    if index.centroids is None:
+        raise RuntimeError("train the index before saving it")
+    il = index.invlists or InvertedLists(index.nlist, index.code_size)
+    lengths = il.lengths
+    ids_flat = np.concatenate(il.ids) if lengths.sum() else np.zeros(0, np.uint64)
+    codes_flat = np.concatenate(il.codes) if lengths.sum() else np.zeros(0, np.uint8)
+    # the JAX package's HNSW quantizer parameters follow: the port has the
+    # flat quantizer only, so it writes their defaults
+    meta = dict(d=index.d, nlist=index.nlist, storage=index.storage, nprobe=index.nprobe,
+                ntotal=index.ntotal, code_size=index.code_size, quantizer=index.quantizer,
+                quantizer_efSearch=64, quantizer_M=32)
+    arrs = dict(centroids=index.centroids.cpu().numpy(), lengths=lengths, ids_flat=ids_flat,
+                codes_flat=codes_flat, meta=np.array(json.dumps(meta)))
+    if index.storage == "pq":
+        arrs["pq_centroids"] = index.pq.centroids.cpu().numpy()
+        arrs["pq_meta"] = np.array([index.pq.M], dtype=np.int64)
+    np.savez(path, **arrs)
+
+
 def load_index(path, device=DEFAULT_DEVICE) -> IndexIVF:
-    """Read the .npz that the JAX package's ``search.ivf.save_index`` writes
+    """Read the .npz that ``save_index`` (of either package) writes
     (centroids, lengths, ids_flat, codes_flat, meta, and for PQ storage
     pq_centroids and pq_meta) into a port index on ``device`` holding the
     same inverted lists and codebooks. Flat and PQ storage."""

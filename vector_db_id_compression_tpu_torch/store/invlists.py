@@ -306,7 +306,6 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         self.interleave = interleave
         t = interleaved_lane_table(il, interleave, interleave_min)
         self.id_symbol_precision = t.list_precision
-        self.n_lanes = t.n_lanes
         dev = self.device
         lengths_t = torch.from_numpy(t.lengths).to(dev)
         prec_t = torch.from_numpy(t.precision).to(dev)
@@ -328,10 +327,18 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         n_max = t.ids.shape[1]
         self.decoder = RocDecoder(states, lengths_t, prec_t, rd.default_pool(n_max, dev),
                                   n_max)
-        self._lane_lo = torch.from_numpy(t.lo.view(np.int64)).to(dev)
-        self._lane_first = torch.from_numpy(t.starts).to(dev)
-        self._lane_start = torch.from_numpy(t.lane_start).to(dev)
-        self._n_lanes = torch.from_numpy(t.n_lanes).to(dev)
+        self._set_lanes(t.lo, t.starts, t.lane_start, t.n_lanes)
+
+    def _set_lanes(self, lo, starts, lane_start, n_lanes):
+        """The lane table's bookkeeping on the device, from host arrays: each
+        lane's minimum ``lo`` u64[E] and first position ``starts`` i64[E] in
+        its sorted list, each list's first lane and lane count i64[nlist]."""
+        dev = self.device
+        self.n_lanes = n_lanes
+        self._lane_lo = torch.from_numpy(lo.view(np.int64)).to(dev)
+        self._lane_first = torch.from_numpy(starts).to(dev)
+        self._lane_start = torch.from_numpy(lane_start).to(dev)
+        self._n_lanes = torch.from_numpy(n_lanes).to(dev)
         self._list_len = torch.from_numpy(self._lengths).to(dev)
 
     def _lanes_of(self, list_nos: torch.Tensor):
