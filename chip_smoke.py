@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths (``vector_db_id_compression_tpu_torch``) once
+Drives the port's paths (``vector_db_id_compression_tpu_torch``) once
 each, at SIFT1M's shape: 1,000,000 synthetic database vectors of d = 128
 (float32) and 1000 queries, k = 10. The IVF paths: an IVF with 1024 lists,
 nprobe = 16, the ids of every inverted list ROC-compressed and decoded only
@@ -14,7 +14,10 @@ the card with its adjacency dense, ROC-compressed per node, ROC-compressed in
 chained blocks of 16 nodes, packed in fixed-width fields and Elias-Fano
 coded, decoded inside the traversal. Then every index, container and graph
 of those paths goes through the artifact format: saved, stamped, verified,
-loaded onto the card and searched again. Phases:
+loaded onto the card and searched again. The HNSW path: IVF65536_HNSW32,Flat
+over the same database (an HNSW of M = 32 over the 65,536 centroids as the
+coarse quantizer, nprobe = 64), with the ids ROC-compressed per list and the
+quantizer's level-0 graph in the five containers. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -68,15 +71,31 @@ loaded onto the card and searched again. Phases:
               save, stamp, verify, load and search ms (a loaded graph's
               beside its built graph's, timed in turns), and bits/id (or
               bits/edge) after the round trip
-  9. probes   the two decode-step probes against their plain versions
- 10. chain    the chain probe (the codec's serial chain, no rank or select
+  9. hnsw     IVF65536_HNSW32,Flat: k-means over 2^21 training vectors of
+              the same mixture (32 per centroid), the HNSW quantizer built
+              over the centroids on the card, add through it, search with
+              the uncompressed lists and RocInvertedLists, the level-0 graph
+              as the five containers and HNSW.search through each; it fails
+              unless the ROC search equals the uncompressed one, every vector
+              lies in exactly one list, its HNSW top-1 (the exact nearest
+              centroid for a miss), the device walk equals the host oracle
+              (greedy descent, host search_graph per query) on 32 queries
+              up to near ties, the five level-0 searches are identical, every
+              ROC kernel ran, and the HNSW (save_hnsw) and the index
+              (save_index) loaded search as before; then the build, add and
+              search times (the coarse walk with its hops, the scan, the
+              translate; the flat quantizer beside), bits/id and bits/edge,
+              recall and the probes' overlap with the exact top 64
+ 10. probes   the two decode-step probes against their plain versions
+ 11. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
- 11. timing   each kernel beside its plain version at its paths' shapes:
+ 12. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
-              entries, and at the graph's (per node and chained), bit-equal
+              entries, at the graph's (per node and chained), and at
+              [hnsw]'s (its 65,536 lists, its level-0 graph), bit-equal
               or the run fails; the native host codec over the PQ index's
               1024 lists, equal to the kernels' streams or the run fails;
               then one line per kernel with its time, its bound, its chain
@@ -115,6 +134,11 @@ NLIST, K, NPROBE = 1024, 10, 16
 PQ_M = 16
 GRAPH_R, GRAPH_BLOCK = 32, 16
 NQ_HOST = 32  # queries the host-loop search checks the device walk on
+# [hnsw]: IVF65536_HNSW32,Flat, Faiss's index guideline for 1M-10M vectors,
+# the JAX package's quantizer defaults (M 32, efSearch 64); 32 training
+# vectors per centroid (Faiss asks for at least 30)
+HNSW_NLIST, HNSW_NPROBE, HNSW_M, HNSW_EF = 65536, 64, 32, 64
+HNSW_NT = 2 ** 21
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores, the table's scalar rate, for the
 # kernels' integer compares
@@ -420,17 +444,18 @@ def chained_batch(seed: int):
             torch.from_numpy(prec))
 
 
+def draw(seed: int, n: int, draw_seed: int):
+    """``n`` vectors of the Gaussian mixture of ``seed`` (as the JAX
+    package's bench/datasets.py SyntheticDataset: 32 centres scaled by 4,
+    unit noise), drawn with ``draw_seed``."""
+    cent = np.random.default_rng(seed).standard_normal((32, D)).astype(np.float32) * 4.0
+    r = np.random.default_rng(draw_seed)
+    return (cent[r.integers(0, 32, n)] + r.standard_normal((n, D))).astype(np.float32)
+
+
 def make_data(seed: int):
-    """Gaussian mixture as the JAX package's bench/datasets.py
-    SyntheticDataset: 32 centres scaled by 4, unit noise."""
-    rng = np.random.default_rng(seed)
-    cent = rng.standard_normal((32, D)).astype(np.float32) * 4.0
-
-    def draw(n, r):
-        return (cent[r.integers(0, 32, n)] + r.standard_normal((n, D))).astype(np.float32)
-
-    return (draw(NT, np.random.default_rng(seed + 1)), draw(NB, np.random.default_rng(seed + 2)),
-            draw(NQ, np.random.default_rng(seed + 3)))
+    """Training, database and query vectors of the mixture of ``seed``."""
+    return draw(seed, NT, seed + 1), draw(seed, NB, seed + 2), draw(seed, NQ, seed + 3)
 
 
 def phase_main(xt, xb, xq):
@@ -601,19 +626,19 @@ def phase_codecs(index, roc, xq):
     return built
 
 
-def search_times(index, xq, what: str):
+def search_times(index, xq, what: str, nprobe: int = NPROBE):
     """(search, positional, translate ms: CUDA-event medians of 5 after a
     warm-up; lists touched by the translate) for the active container; logs
     its search's profile as ``what``."""
-    t_pos = median_ms(lambda: index.search_positional(xq, K, NPROBE))
-    _, L = index.search_positional(xq, K, NPROBE)
+    t_pos = median_ms(lambda: index.search_positional(xq, K, nprobe))
+    _, L = index.search_positional(xq, K, nprobe)
     t_tr = median_ms(lambda: index._translate(L))
-    t_search = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE))
-    profile_search(index, xq, what)
+    t_search = median_ms(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=nprobe))
+    profile_search(index, xq, what, nprobe=nprobe)
     return t_search, t_pos, t_tr, int(torch.unique(L[L >= 0] >> 32).numel())
 
 
-def profile_search(index, xq, what: str, reps: int = 3) -> None:
+def profile_search(index, xq, what: str, reps: int = 3, nprobe: int = NPROBE) -> None:
     """torch.profiler over ``reps`` searches of the active container; logs,
     per search: wall ms (host clock), device ms (the kernels' self times),
     the idle share (1 - device / wall) and the three kernels with the most
@@ -621,12 +646,12 @@ def profile_search(index, xq, what: str, reps: int = 3) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+    index.search_defer_id_decoding(xq, k=K, nprobe=nprobe)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
+            index.search_defer_id_decoding(xq, k=K, nprobe=nprobe)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     # device-side events only: the CPU ops that launch them carry their time too
@@ -997,6 +1022,272 @@ def phase_serialize(ivfs, graphs, medoid, graph_ref, xb, xq):
     return launches
 
 
+def phase_hnsw(xt, xb, xq, I_bf):
+    """IVF65536_HNSW32,Flat over the [main] database: train on ``xt``, build
+    the HNSW quantizer over the centroids, add through it, search with the
+    uncompressed lists and RocInvertedLists; the quantizer's level-0 graph
+    in the five containers, each searched by HNSW.search(graph0=...). Fails
+    unless the ROC search equals the uncompressed one, every vector lands in
+    its HNSW top-1 list (or the exact nearest for a miss), the device walk
+    equals the host oracle on 32 queries, the five level-0 searches are
+    identical and the saved and loaded index and HNSW search as before.
+    Returns (the index, its ROC container, the HNSW, its ROC graphs, the
+    nearest node found per query, this phase's launch counts, the chained
+    kernels' launches per search or build)."""
+    from vector_db_id_compression_tpu_torch import native
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.search.graph_device import (hnsw_descend_device,
+                                                                        search_graph_device)
+    from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index, save_index
+    from vector_db_id_compression_tpu_torch.search.kmeans import assign
+    from vector_db_id_compression_tpu_torch.search.nsg import search_graph
+    from vector_db_id_compression_tpu_torch.store.graph import (
+        CompactBitGraph, EliasFanoGraph, RocBlockGraph, RocGraph)
+    from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+    from vector_db_id_compression_tpu_torch.store.serialize import load_hnsw, save_hnsw
+
+    cuda = torch.device("cuda")
+    xq_d, xb_d = torch.from_numpy(xq).to(cuda), torch.from_numpy(xb).to(cuda)
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # ---- the [hnsw] path, through the user-facing entry points; the
+    # kernels' launch counts are read from this window only
+    RocEncoder.launches = RocEncoder.chained_launches = 0
+    RocDecoder.launches = RocDecoder.chained_launches = 0
+    index = IndexIVF(D, HNSW_NLIST, storage="flat", nprobe=HNSW_NPROBE, quantizer="hnsw",
+                     quantizer_M=HNSW_M, quantizer_efSearch=HNSW_EF, device=cuda)
+    t_train, _ = host_s(lambda: index.train(xt))
+    # add builds the quantizer lazily; built here first to time it apart,
+    # with its host link loop (C++) timed on its own
+    link, link_s = native.hnsw_link, []
+
+    def timed_link(*args):
+        t0 = time.perf_counter()
+        link(*args)
+        link_s.append(time.perf_counter() - t0)
+
+    native.hnsw_link = timed_link
+    t_quant, h = host_s(index._ensure_quantizer)
+    native.hnsw_link = link
+    # the walk's top-1 for each vector, recorded as add asks for it (gate 2)
+    walked, coarse_assign = [], index.coarse_assign
+
+    def recording(x, nprobe):
+        probes = coarse_assign(x, nprobe)
+        walked.append(probes[:, 0].clone())
+        return probes
+
+    index.coarse_assign = recording
+    t_add, _ = host_s(lambda: index.add(xb))
+    del index.coarse_assign
+    D0, I0 = index.search(xq, K)
+    t_roc, roc = cuda_ms(lambda: RocInvertedLists(index.invlists, device=cuda))
+    index.replace_invlists(roc)
+    D1, I1 = index.search(xq, K)
+    g0 = h.level0_graph()
+    t_rg, rg = cuda_ms(lambda: RocGraph(g0))
+    before = RocEncoder.chained_launches
+    t_blk, blk = cuda_ms(lambda: RocBlockGraph(g0, block=GRAPH_BLOCK))
+    per_unit = {"roc_encode_chained": RocEncoder.chained_launches - before}
+    t_cb, cb = cuda_ms(lambda: CompactBitGraph(g0))
+    t_ef, efg = cuda_ms(lambda: EliasFanoGraph(g0))
+    containers = {"Graph": g0, "RocGraph": rg, "RocBlockGraph": blk,
+                  "CompactBitGraph": cb, "EliasFanoGraph": efg}
+    level0 = {}
+    for name, c in containers.items():
+        before = RocDecoder.launches, RocDecoder.chained_launches
+        level0[name] = h.search(xq_d, HNSW_NPROBE, ef=HNSW_EF, graph0=c)
+        torch.cuda.synchronize()
+        if name == "RocGraph":
+            hops = RocDecoder.launches - before[0]  # one decode launch per hop
+        if name == "RocBlockGraph":
+            per_unit["roc_decode_chained"] = RocDecoder.chained_launches - before[1]
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches,
+                "roc_encode_chained": RocEncoder.chained_launches,
+                "roc_decode_chained": RocDecoder.chained_launches}
+    # ----
+    if min(launches.values()) < 1:
+        raise AssertionError(f"[hnsw] a kernel of the path was not launched: {launches}")
+
+    N0 = h.levels.shape[0]
+    per_level = [int((h.levels >= l).sum()) for l in range(h.max_level + 1)]
+    edges = int((h.layers[0] >= 0).sum())
+    log(f"[hnsw] IVF{HNSW_NLIST}_HNSW{HNSW_M},Flat: k-means of {len(xt)} training vectors "
+        f"{t_train:.1f} s; HNSW quantizer over the {N0} centroids {t_quant:.1f} s, of which "
+        f"the host link loop {sum(link_s):.1f} s in {len(link_s)} calls and the walks on the "
+        f"card the rest (M {h.M}, ef_construction {h.ef_construction}, seed {h.seed}): "
+        f"{h.max_level + 1} "
+        f"levels, nodes per level {per_level}, entry {h.entry}, level-0 edges {edges} "
+        f"(mean degree {edges / N0:.2f} of {h.Mmax0}); add of {index.ntotal} vectors "
+        f"{t_add:.1f} s (host clock, synchronised)")
+    # gate 2: every vector in exactly one list, its HNSW top-1 (exact nearest
+    # for a miss); the walk again over the first chunk gives the same top-1
+    lengths = index.invlists.lengths
+    ids = np.concatenate(index.invlists.ids).view(np.int64)
+    if not np.array_equal(np.sort(ids), np.arange(NB)):
+        raise AssertionError("[hnsw] the lists do not hold every vector exactly once")
+    got = np.empty(NB, dtype=np.int64)
+    got[ids] = np.repeat(np.arange(HNSW_NLIST), lengths)
+    top1 = torch.cat(walked)
+    again = index.coarse_assign(xb_d[:len(walked[0])], 1)[:, 0]
+    if top1.shape != (NB,) or not torch.equal(again, walked[0]):
+        raise AssertionError("[hnsw] add did not walk every vector once, or a second walk "
+                             "of its first chunk differs")
+    missed = torch.nonzero(top1 < 0)[:, 0]
+    want = top1.clone()
+    if missed.numel():
+        want[missed] = assign(xb_d[missed], index.centroids)
+    if not np.array_equal(got, want.cpu().numpy()):
+        raise AssertionError("[hnsw] a vector's list is not its HNSW top-1 (or exact nearest)")
+    log(f"[hnsw] add: every vector in exactly one list, its HNSW top-1 (in {len(walked)} "
+        f"walks; a second walk of the first {len(walked[0])} gives the same); misses (-1, "
+        f"assigned to the exact nearest centroid) {missed.numel()}; list lengths "
+        f"{lengths.min()}..{lengths.max()} (mean {lengths.mean():.2f}, "
+        f"{int((lengths == 0).sum())} empty)")
+    # gate 1: the ROC search equals the uncompressed one
+    if I1.shape != (NQ, K) or not bool(torch.isfinite(D1).all()) or int(I1.min()) < 0:
+        raise AssertionError("[hnsw] search: bad shape, non-finite distances or empty slots")
+    if not torch.equal(I1.sort(dim=1).values, I0.sort(dim=1).values):
+        raise AssertionError("[hnsw] ROC search rows differ from the uncompressed search")
+    torch.testing.assert_close(D1, D0, rtol=1e-4, atol=1e-3)
+    log(f"[hnsw] RocInvertedLists search == uncompressed search on {NQ} queries, nprobe "
+        f"{HNSW_NPROBE} (sorted I rows equal, D within rtol 1e-4 atol 1e-3; D identical: "
+        f"{torch.equal(D1, D0)}); bits/id {roc.compressed_ids_size_in_bytes * 8 / NB:.4f} "
+        f"(built in {t_roc:.1f} ms)")
+    # gate 4: the five level-0 containers give identical I and D
+    Dg, Ig = level0["Graph"]
+    for name, (Dc, Ic) in level0.items():
+        if not (torch.equal(Ic, Ig) and torch.equal(Dc, Dg)):
+            raise AssertionError(f"[hnsw] HNSW.search with graph0={name}: I or D differs")
+    for name, c, t in (("RocGraph", rg, t_rg), ("RocBlockGraph", blk, t_blk),
+                       ("CompactBitGraph", cb, t_cb), ("EliasFanoGraph", efg, t_ef)):
+        log(f"[hnsw] level 0 as {name}: built in {t:.1f} ms (CUDA events), bits/edge "
+            f"{c.compressed_ids_size_in_bytes * 8 / edges:.4f} + overhead "
+            f"{c.overhead_in_bytes * 8 / edges:.4f}")
+    log(f"[hnsw] HNSW.search of {NQ} queries (k {HNSW_NPROBE}, ef {HNSW_EF}) over the "
+        f"centroids: I and D identical with graph0 = Graph, RocGraph, "
+        f"RocBlockGraph(block={GRAPH_BLOCK}), CompactBitGraph, EliasFanoGraph; {hops} hops; "
+        f"launches {launches}")
+    # gate 3: the device walk against the host oracle on NQ_HOST queries
+    entries = hnsw_descend_device(h, xq_d[:NQ_HOST])
+    cur = np.full(NQ_HOST, h.entry, dtype=np.int64)
+    everyone = torch.ones(N0, dtype=torch.bool, device=cuda)
+    for lv in range(h.max_level, 0, -1):
+        cur = h._greedy_descend(np.arange(NQ_HOST), cur, lv, everyone, xq=xq_d[:NQ_HOST])
+    if not np.array_equal(entries.cpu().numpy(), cur):
+        raise AssertionError("[hnsw] hnsw_descend_device differs from the host greedy descent")
+    host = [search_graph(g0, h._xb, xq_d[i:i + 1], HNSW_NPROBE, L=HNSW_EF, entry=int(cur[i]))
+            for i in range(NQ_HOST)]
+    Dh, Ih = torch.cat([r[0] for r in host]), torch.cat([r[1] for r in host])
+    ties = assert_near_ties("[hnsw] device walk vs host oracle", Dg[:NQ_HOST], Ig[:NQ_HOST],
+                            Dh, Ih, 1e-5, 1e-5)
+    log(f"[hnsw] on {NQ_HOST} queries the device walk (hnsw_descend_device + "
+        f"search_graph_device) == the host oracle (greedy descent + host search_graph per "
+        f"query from its entry): entries identical, I and D under the near-tie rule (rtol "
+        f"1e-5; labels at near ties {ties})")
+
+    # times: the coarse walk, the scan, the translate; the flat quantizer beside
+    coarse_ms = median_ms(lambda: index.coarse_assign(xq, HNSW_NPROBE))
+    times = {}
+    for name, container in (("uncompressed", index.invlists), ("RocInvertedLists", roc)):
+        index.replace_invlists(container)
+        times[name] = search_times(index, xq, f"IVF{HNSW_NLIST}_HNSW{HNSW_M} {name}",
+                                   HNSW_NPROBE)
+    probes = index.coarse_assign(xq, HNSW_NPROBE)
+    rec = {"HNSW quantizer": recalls(I1, I_bf)[1]}
+    index.quantizer = "flat"
+    flat_ms = median_ms(lambda: index.coarse_assign(xq, HNSW_NPROBE))
+    exact = index.coarse_assign(xq, HNSW_NPROBE)
+    for name, container in (("uncompressed", index.invlists), ("RocInvertedLists", roc)):
+        index.replace_invlists(container)
+        times[f"{name}, flat quantizer"] = search_times(
+            index, xq, f"IVF{HNSW_NLIST},Flat (flat quantizer) {name}", HNSW_NPROBE)
+    rec["flat quantizer"] = recalls(index.search(xq, K)[1], I_bf)[1]
+    index.quantizer = "hnsw"
+    overlap = float((probes[:, :, None] == exact[:, None, :]).any(2).float().mean())
+    log(f"[hnsw] coarse ms (CUDA-event medians of 5 after a warm-up, {NQ} queries, top "
+        f"{HNSW_NPROBE}): HNSW walk {coarse_ms:.2f} ({hops} hops), flat product "
+        f"{flat_ms:.2f}; probes of the HNSW walk in the exact top-{HNSW_NPROBE}: "
+        f"{overlap:.4f}; recall@{K} against brute force: " + ", ".join(
+            f"{k_} {v:.4f}" for k_, v in rec.items()))
+    log(f"[hnsw] search ms ({NQ} queries, nprobe {HNSW_NPROBE}, median of 5 after a warm-up) "
+        "= positional (coarse + scan) + translate: " + "; ".join(
+            f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} touched lists)"
+            for name, t in times.items()))
+    l0_ms = {name: median_ms(lambda c=c: h.search(xq_d, HNSW_NPROBE, ef=HNSW_EF, graph0=c))
+             for name, c in containers.items()}
+    log(f"[hnsw] level-0 search ms (HNSW.search, {NQ} queries, k {HNSW_NPROBE}, CUDA-event "
+        "medians of 5 after a warm-up): " + ", ".join(f"{n} {t:.2f}" for n, t in l0_ms.items()))
+
+    # gate 6: the HNSW and the index saved, loaded and searched as before
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "artifact.npz"
+        r_h, lh = round_trip(path, "[hnsw] HNSW", h, save_hnsw,
+                             lambda p: load_hnsw(p, index.centroids, device=cuda))
+        Dl, Il = lh.search(xq_d, HNSW_NPROBE, ef=HNSW_EF)
+        if not (torch.equal(Il, Ig) and torch.equal(Dl, Dg)):
+            raise AssertionError("[hnsw] the loaded HNSW searches otherwise than the built")
+        r_i, li = round_trip(path, "[hnsw] index", index, save_index,
+                             lambda p: load_index(p, device=cuda))
+        # the file holds the quantizer's parameters; its graph is the HNSW file's
+        li._quantizer_hnsw, li._quantizer_src = lh, li.centroids
+        Dli, Ili = li.search(xq, K)
+        if not (torch.equal(Ili, I0) and torch.equal(Dli, D0)):
+            raise AssertionError("[hnsw] the loaded index searches otherwise than the built")
+    for what, r in (("HNSW (save_hnsw)", r_h), ("index (save_index)", r_i)):
+        log(f"[hnsw] {what}: {r['bytes']} bytes; save {r['save_ms']:.1f}, stamp "
+            f"{r['stamp_ms']:.1f}, verify {r['verify_ms']:.1f}, load {r['load_ms']:.1f} ms (host "
+            f"clock); loaded and searched: I and D identical to the built")
+    index.replace_invlists(roc)
+    return index, roc, containers, Ig[:, 0], launches, per_unit
+
+
+def time_hnsw_kernels(index, roc, level0, nodes, launches, per_unit, chain):
+    """The ROC kernels beside their plain versions at [hnsw]'s shapes: encode
+    and decode of the 65,536 lists, and the level-0 graph's per-node and
+    chained kernels (``time_graph_kernels``: every node's or block's encode,
+    the lanes and blocks of one hop's frontier). Returns, by kernel, its
+    numbers at these shapes (keys prefixed ``hnsw_``). ``level0``: the
+    level-0 containers by name."""
+    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+    from vector_db_id_compression_tpu_torch.store.ragged import bucketize
+
+    sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
+    enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err = \
+        lane_kernels_vs_plain_by_bucket(sorted_ids, lengths, prec, roc.decoder)
+    if enc_err or dec_err:
+        raise AssertionError(f"kernels vs plain at the {HNSW_NLIST} lists: encode {enc_err}, "
+                             f"decode {dec_err}")
+    log(f"[timing] hnsw, {HNSW_NLIST} lists, n_max {sorted_ids.shape[1]}: encode kernel "
+        f"{enc_ms:.3f} ms vs plain {enc_plain_ms:.1f} ms; decode kernel {dec_ms:.3f} ms vs "
+        f"plain {dec_plain_ms:.1f} ms (kernels: the whole table, CUDA-event medians; plain: "
+        f"its {len(bucketize(lengths)) + 1} size buckets, one run each, summed); both == "
+        f"plain == the container's streams")
+    per_node, chained = time_graph_kernels(level0["Graph"], level0["RocGraph"],
+                                           level0["RocBlockGraph"], nodes, launches, per_unit,
+                                           chain, label="hnsw level 0")
+    out = {"roc_encode": {"max_abs_err": max(enc_err, per_node["roc_encode"]["max_abs_err"]),
+                          "hnsw_lists_ms": enc_ms, "hnsw_lists_plain_ms": enc_plain_ms,
+                          "hnsw_level0_ms": per_node["roc_encode"]["graph_ms"],
+                          "hnsw_level0_plain_ms": per_node["roc_encode"]["graph_plain_ms"]},
+           "roc_decode": {"max_abs_err": max(dec_err, per_node["roc_decode"]["max_abs_err"]),
+                          "hnsw_lists_ms": dec_ms, "hnsw_lists_plain_ms": dec_plain_ms,
+                          "hnsw_fetch_ms": per_node["roc_decode"]["graph_fetch_ms"],
+                          "hnsw_fetch_plain_ms": per_node["roc_decode"]["graph_fetch_plain_ms"]}}
+    for e in chained:
+        out[e["name"]] = {"max_abs_err": e["max_abs_err"], "hnsw_ms": e["ms"],
+                          "hnsw_plain_ms": e["plain_ms"], "hnsw_bound_ms": e["bound_ms"],
+                          "hnsw_launches_per_unit": e.get("launches_per_search",
+                                                          e.get("launches_per_build"))}
+    return out
+
+
 def phase_probes(seed: int):
     """K3 and K4 on the card against their plain versions, on the inputs the
     probe files draw (seeded here). Returns the two kernels' JSON entries."""
@@ -1113,6 +1404,59 @@ def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
     dec_plain_ms, (ids_p, _) = cuda_ms(lambda: rd.roc_decode_batch(
         st_k, len_t, prec_t, pool, n_max, n_slices))
     dec_err = max_abs_err(decoder.decode(), ids_p)
+    return enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err
+
+
+def lane_kernels_vs_plain_by_bucket(sorted_ids, lengths, prec, decoder):
+    """As ``lane_kernels_vs_plain``, for lanes of very unequal lengths: the
+    kernels run over the whole table (the path's one launch each), their
+    plain versions over each size bucket of it (``store.ragged.bucketize``,
+    the empty lanes as one more group). A lane's stream does not depend on
+    the other lanes, and a plain version's work grows with the lanes times
+    the padded length squared, so one list of thousands of ids among 65,536
+    short ones would hold its plain run over the whole table for minutes.
+    Each bucket's states are held against the kernel's rows of that bucket
+    (stack words up to each lane's stack length), its decode against the
+    kernel's. Returns (encode ms, plain ms summed over the buckets, error;
+    decode ms, plain ms, error)."""
+    from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.store.ragged import bucketize
+
+    cuda = torch.device("cuda")
+    ids_t = torch.from_numpy(sorted_ids.view(np.int64)).to(cuda)
+    len_t, prec_t = torch.from_numpy(lengths).to(cuda), torch.from_numpy(prec).to(cuda)
+    maxp = int(prec.max())
+    n_slices = rd.n_slices_for(maxp)
+    enc_ms = median_ms(lambda: RocEncoder.encode(ids_t, len_t, prec_t), reps=3)
+    st_k, order_k = RocEncoder.encode(ids_t, len_t, prec_t)
+    dec_ms = median_ms(decoder.decode, reps=3)
+    ids_k = decoder.decode()
+    enc_err = max_abs_err(tuple(st_k), tuple(decoder.states))
+    dec_err, enc_plain_ms, dec_plain_ms = 0.0, 0.0, 0.0
+    groups = [(b.list_ids, b.n_pad) for b in bucketize(lengths)]
+    groups.append((np.flatnonzero(lengths == 0), 1))
+    for rows, n in groups:
+        lanes = torch.from_numpy(rows).to(cuda)
+        pool = rd.default_pool(n, cuda)
+        cap = rd.stack_capacity(n, maxp)
+        t, (st_p, order_p) = cuda_ms(lambda: rd.roc_encode_batch(
+            ids_t[lanes, :n], len_t[lanes], prec_t[lanes], pool,
+            rd.fresh_states(len(rows), cap, cuda), n_slices))
+        enc_plain_ms += t
+        sub = rd.RocStates(*(x[lanes] for x in st_k))
+        sub = sub._replace(stack=sub.stack[:, :cap])
+        live = torch.arange(cap, device=cuda)[None, :] < st_p.stack_len[:, None]
+        in_list = torch.arange(n, device=cuda)[None, :] < len_t[lanes][:, None]
+        enc_err = max(enc_err, max_abs_err(
+            (sub.head, sub.stack_len, sub.mt_ctr, sub.err, torch.where(live, sub.stack, 0),
+             torch.where(in_list, order_k[lanes, :n], 0)),
+            (st_p.head, st_p.stack_len, st_p.mt_ctr, st_p.err, torch.where(live, st_p.stack, 0),
+             torch.where(in_list, order_p, 0))))
+        t, (ids_p, _) = cuda_ms(lambda: rd.roc_decode_batch(
+            sub, len_t[lanes], prec_t[lanes], pool, n, n_slices))
+        dec_plain_ms += t
+        dec_err = max(dec_err, max_abs_err(ids_k[lanes, :n], ids_p))
     return enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err
 
 
@@ -1241,7 +1585,7 @@ def time_pq_kernels(index, roc, il, chain):
                            "native_host_ms": nat_dec_ms, "native_threads": threads}}
 
 
-def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain):
+def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain, label="graph"):
     """Both ROC kernels beside their plain versions at the graph path's
     shapes: the chained decode of one fetch (the block of one node per query)
     and of all 62,500 blocks, the chained encode of every block, the per-node
@@ -1249,7 +1593,8 @@ def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain):
     per-node kernels' graph-shape numbers by kernel, the chained kernels'
     JSON entries). ``per_unit``: the chained kernels' launches per graph
     search (decode) and per container build (encode); ``chain``: the chain
-    probe's (decode, encode) us per step."""
+    probe's (decode, encode) us per step; ``label`` names the graph in the
+    log."""
     from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.store.graph import neighbour_table
@@ -1285,7 +1630,7 @@ def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain):
         dec.states, degs, prec, pool, Kg, n_slices))
     dec_err = max(fetch_err, max_abs_err(dec.decode(), all_p))
     if enc_err or dec_err:
-        raise AssertionError(f"chained kernels vs plain at the graph's shapes: encode "
+        raise AssertionError(f"chained kernels vs plain at the {label}'s shapes: encode "
                              f"{enc_err}, decode {dec_err}")
 
     # the per-node kernels of RocGraph: encode of every node, decode of one
@@ -1306,18 +1651,18 @@ def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain):
         sub_n, degs_n[nodes], prec_n[nodes], pool_n, Kg, slices_n))
     lane_err = max_abs_err(roc.decoder.decode_lanes(nodes), lane_p)
     if node_enc_err or lane_err:
-        raise AssertionError(f"per-node kernels vs plain at the graph's shapes: encode "
+        raise AssertionError(f"per-node kernels vs plain at the {label}'s shapes: encode "
                              f"{node_enc_err}, decode {lane_err}")
     dec_us, enc_us = chain
     steps = longest_steps(degs, blocks)
-    log(f"[timing] graph, {n_blocks} blocks of {GRAPH_BLOCK} nodes, K {Kg}: chained encode "
+    log(f"[timing] {label}, {n_blocks} blocks of {GRAPH_BLOCK} nodes, K {Kg}: chained encode "
         f"kernel {enc_ms:.3f} ms vs plain {enc_plain_ms:.1f} ms; chained decode of one "
         f"fetch ({blocks.numel()} blocks, {fetch_ms * 1e3 / steps:.4f} us per step of the "
         f"longest block, {steps} steps) kernel {fetch_ms:.3f} ms vs plain "
         f"{fetch_plain_ms:.1f} ms, of all {n_blocks} blocks kernel {all_ms:.3f} ms vs "
         f"plain {all_plain_ms:.1f} ms (kernel: CUDA-event median after a warm-up; plain: "
         f"one run on the card)")
-    log(f"[timing] graph, RocGraph, {g.N} nodes, K {Kg}: per-node encode kernel "
+    log(f"[timing] {label}, RocGraph, {g.N} nodes, K {Kg}: per-node encode kernel "
         f"{node_enc_ms:.3f} ms vs plain {node_enc_plain_ms:.1f} ms; per-node decode of one "
         f"fetch ({nodes.numel()} lanes) kernel {lane_ms:.3f} ms vs plain "
         f"{lane_plain_ms:.1f} ms; both == plain == the container's streams")
@@ -1358,17 +1703,29 @@ def main() -> None:
 
     if Path(port.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
         sys.exit("chip_smoke: run from a checkout that holds vector_db_id_compression_tpu_torch")
+    # host-clock seconds of each phase, for the run's time budget
+    spent, clock = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        spent[phase], clock[0] = round(now - clock[0], 1), now
+
     phase_build()
     phase_kernels(args.seed)
+    lap("build, kernels")
     t0 = time.perf_counter()
     xt, xb, xq = make_data(args.seed)
     log(f"[main] data: {NT} train, {NB} database, {NQ} query vectors of d={D} "
         f"(seed {args.seed}) in {time.perf_counter() - t0:.1f} s on the host")
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
+    lap("main")
     codecs = phase_codecs(index, roc, xq)
+    lap("codecs")
     pq_index, pq_roc, pq_il, pq_launches = phase_pq(xt, xb, xq, I_bf,
                                                     int(index.invlists.lengths.max()))
+    lap("pq")
     graphs, medoid, graph_ref, graph_launches, nodes, per_unit = phase_graph(xb, xq, I_bf)
+    lap("graph")
     g, roc_g, blk = graphs["Graph"], graphs["RocGraph"], graphs["RocBlockGraph"]
     ser_launches = phase_serialize(
         [("flat", index, {"ROC": (roc, (None,)),
@@ -1377,20 +1734,35 @@ def main() -> None:
                            "interleaved": (pq_il, (None,))})],
         graphs, medoid, graph_ref, xb, xq)
     del codecs
+    lap("serialize")
+    t0 = time.perf_counter()
+    xt_h = draw(args.seed, HNSW_NT, args.seed + 4)
+    log(f"[hnsw] data: {HNSW_NT} training vectors of the same mixture (seed {args.seed + 4}) "
+        f"in {time.perf_counter() - t0:.1f} s on the host")
+    hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches, hnsw_per_unit = phase_hnsw(
+        xt_h, xb, xq, I_bf)
+    del xt_h
+    lap("hnsw")
     probes = phase_probes(args.seed)
     chain = phase_chain(index, roc)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
                                            chain)
     per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il, chain)
+    per_hnsw = time_hnsw_kernels(hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches,
+                                 hnsw_per_unit, chain)
     kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes
+    lap("probes, chain, timing")
+    log(f"[time] host-clock s by phase: {spent}; in all {sum(spent.values()):.1f} s")
     # a kernel that several paths run counts its launches in each, and its
     # error is the largest of its paths'
     by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches,
-                "serialize": ser_launches}
+                "serialize": ser_launches, "hnsw": hnsw_launches}
     for entry in kernels[:4]:
         name_ = entry["name"]
         entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items() if name_ in n}
         entry["launches"] = sum(entry["launches_by_phase"].values())
+        extra = per_hnsw[name_]
+        entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
     for entry in kernels[:2]:
         name_ = entry["name"]
         for extra in (per_node[name_], per_chunk[name_]):

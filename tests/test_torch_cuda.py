@@ -324,6 +324,50 @@ def test_graph_search_on_card(cuda):
         assert torch.equal(nb.sort(dim=1).values, dense.sort(dim=1).values)
 
 
+def test_hnsw_on_card(cuda):
+    """An HNSW built on the card: its device walk (the descent, then the
+    level-0 pool search) equals the host oracle (the greedy descent, then the
+    host search_graph from each query's entry) up to near ties, the card's
+    build equals the CPU build's, and the five level-0 containers give
+    identical I and D, through the decode kernels."""
+    from vector_db_id_compression_tpu_torch.search.graph_device import hnsw_descend_device
+    from vector_db_id_compression_tpu_torch.search.hnsw import HNSW
+    from vector_db_id_compression_tpu_torch.search.nsg import search_graph
+
+    rng = np.random.default_rng(12)
+    xb = rng.standard_normal((2000, 32)).astype(np.float32)
+    xq = torch.from_numpy(rng.standard_normal((40, 32)).astype(np.float32)).to(cuda)
+    h = HNSW(M=8, ef_construction=40).build(xb, batch=256)
+    assert h._xb.device.type == "cuda" and h.max_level >= 1
+    h_cpu = HNSW(M=8, ef_construction=40, device="cpu").build(xb, batch=256)
+    assert h.entry == h_cpu.entry
+    for a, b in zip(h.layers, h_cpu.layers):
+        assert np.array_equal(a, b)
+    entries = hnsw_descend_device(h, xq)
+    cur = np.full(len(xq), h.entry, dtype=np.int64)
+    everyone = torch.ones(len(xb), dtype=torch.bool, device=cuda)
+    for lv in range(h.max_level, 0, -1):
+        cur = h._greedy_descend(np.arange(len(xq)), cur, lv, everyone, xq=xq)
+    assert np.array_equal(entries.cpu().numpy(), cur)
+    D0, I0 = h.search(xq, 10, ef=32)
+    g0 = h.level0_graph()
+    for i in range(len(xq)):
+        Dh, Ih, _ = search_graph(g0, h._xb, xq[i:i + 1], 10, L=32, entry=int(cur[i]))
+        torch.testing.assert_close(Dh, D0[i:i + 1], rtol=1e-5, atol=1e-5)
+        differ = torch.nonzero(Ih[0] != I0[i])[:, 0].tolist()
+        for j in differ:  # a label may differ only at a near tie
+            near = [abs(float(D0[i, j] - D0[i, jj])) <= 1e-5 * float(D0[i, j])
+                    for jj in (j - 1, j + 1) if 0 <= jj < 10]
+            assert any(near)
+    before = (RocDecoder.launches, RocDecoder.chained_launches)
+    for container in (RocGraph(g0), RocBlockGraph(g0, block=16), CompactBitGraph(g0),
+                      EliasFanoGraph(g0)):
+        D1, I1 = h.search(xq, 10, ef=32, graph0=container)
+        assert torch.equal(I1, I0) and torch.equal(D1, D0)
+    torch.cuda.synchronize()
+    assert RocDecoder.launches > before[0] and RocDecoder.chained_launches > before[1]
+
+
 def test_entry_points_default_to_the_card(cuda):
     """Called without ``device``, the entry points take the card."""
     rng = np.random.default_rng(8)
@@ -333,6 +377,11 @@ def test_entry_points_default_to_the_card(cuda):
     index.add(xb)
     assert index.device.type == "cuda" and index.centroids.device.type == "cuda"
     assert RocInvertedLists(index.invlists).decoder.device.type == "cuda"
+    hq = IndexIVF(16, 8, quantizer="hnsw", quantizer_M=4)
+    hq.train(xb)
+    hq.add(xb)
+    assert hq._quantizer_hnsw.device.type == "cuda"
+    assert sum(len(ids) for ids in hq.invlists.ids) == len(xb)
     g, _ = build_nsg(xb[:500], R=8)
     assert g.device.type == "cuda"
 

@@ -16,13 +16,15 @@ import torch
 from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.search.ivf import save_index
 from vector_db_id_compression_tpu_torch.codecs.roc_interleaved import interleaved_encode
+from vector_db_id_compression_tpu_torch.search.hnsw import HNSW
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index
 from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
 from vector_db_id_compression_tpu_torch.search.nsg import build_knn_graph, build_nsg
 from vector_db_id_compression_tpu_torch.search.pq import ProductQuantizer
 from vector_db_id_compression_tpu_torch.store.graph import CompactBitGraph, EliasFanoGraph, Graph
-from vector_db_id_compression_tpu_torch.store.serialize import (load_graph, load_invlists,
-                                                                save_graph, save_invlists)
+from vector_db_id_compression_tpu_torch.store.serialize import (load_graph, load_hnsw,
+                                                                load_invlists, save_graph,
+                                                                save_hnsw, save_invlists)
 from vector_db_id_compression_tpu_torch.store.invlists import (
     EliasFanoInvertedLists,
     InterleavedRocInvertedLists,
@@ -35,7 +37,8 @@ from vector_db_id_compression_tpu_torch.store.invlists import (
 @pytest.fixture(scope="module")
 def small(tmp_path_factory):
     """A few vectors, a JAX index saved as .npz, its lists loaded on the
-    CPU, and a packed-bits container and a compact graph saved by the port."""
+    CPU, and a packed-bits container, a compact graph and an HNSW saved by
+    the port."""
     rng = np.random.default_rng(4)
     xb = rng.standard_normal((200, 8)).astype(np.float32)
     jidx = JaxIndexIVF(8, 4, storage="flat")
@@ -48,8 +51,10 @@ def small(tmp_path_factory):
     il_path, graph_path = path.with_name("packed.npz"), path.with_name("graph.npz")
     save_invlists(il_path, PackedBitsInvertedLists(il, device="cpu"))
     save_graph(graph_path, CompactBitGraph(Graph(adj, device="cpu")))
+    hnsw_path = path.with_name("hnsw.npz")
+    save_hnsw(hnsw_path, HNSW(M=4, device="cpu").build(xb[:50]))
     return SimpleNamespace(xb=xb, path=path, il=il, adj=adj, il_path=il_path,
-                           graph_path=graph_path)
+                           graph_path=graph_path, hnsw_path=hnsw_path)
 
 
 # each entry point → the device its result lives on, given the keyword
@@ -57,6 +62,9 @@ def small(tmp_path_factory):
 ENTRY_POINTS = {
     "IndexIVF": lambda s, **kw: IndexIVF(8, 8, **kw).device,
     "IndexIVF-pq": lambda s, **kw: IndexIVF(8, 8, storage="pq", pq_m=2, **kw).pq.device,
+    "IndexIVF-hnsw": lambda s, **kw: IndexIVF(8, 8, quantizer="hnsw", **kw).device,
+    "HNSW": lambda s, **kw: HNSW(M=4, **kw).device,
+    "load_hnsw": lambda s, **kw: load_hnsw(s.hnsw_path, s.xb[:50], **kw)._xb.device,
     "load_index": lambda s, **kw: load_index(s.path, **kw).centroids.device,
     "load_invlists": lambda s, **kw: load_invlists(s.il_path, **kw).packed.words.device,
     "load_graph": lambda s, **kw: load_graph(s.graph_path, **kw).words.device,

@@ -10,7 +10,9 @@ tiny IVF-PQ index and searches it with the interleaved ROC container through
 both PQ scans, runs the host and native ROC codecs, builds a tiny NSG graph
 and searches it with its five containers, saves and reloads the PQ index, the
 interleaved container (stamped and verified) and a chained ROC graph and
-searches them again, and runs the two probes. The JAX package is imported
+searches them again, builds and searches a tiny HNSW (dense and ROC level 0,
+saved and reloaded) and an IVF index with the HNSW quantizer, and runs the
+two probes. The JAX package is imported
 here only to compare with.
 """
 
@@ -116,6 +118,26 @@ with tempfile.TemporaryDirectory() as tmp:
     D3, I3 = search_graph_device(load_graph(os.path.join(tmp, "g.npz"), device="cpu"), xb, xq, 5,
                                  entry=medoid)
     assert torch.equal(I3, Ig) and torch.equal(D3, Dg)
+from vector_db_id_compression_tpu_torch.search.hnsw import HNSW
+from vector_db_id_compression_tpu_torch.store.serialize import load_hnsw, save_hnsw
+
+h = HNSW(M=6, ef_construction=20, device="cpu").build(xb, batch=100)
+Dh0, Ih0 = h.search(xq, 5, ef=20)
+assert int(Ih0.min()) >= 0 and int(Ih0.max()) < 600
+Dh1, Ih1 = h.search(xq, 5, ef=20, graph0=RocGraph(h.level0_graph()))
+assert torch.equal(Ih1, Ih0) and torch.equal(Dh1, Dh0)
+hq = IndexIVF(8, 16, quantizer="hnsw", quantizer_M=4, device="cpu")
+hq.train(xb, niter=5)
+hq.add(xb)
+assert sum(len(ids) for ids in hq.invlists.ids) == 600
+Dq0, Iq0 = hq.search(xq, 5, nprobe=20)
+hq.replace_invlists(RocInvertedLists(hq.invlists, device="cpu"))
+Dq1, Iq1 = hq.search(xq, 5, nprobe=20)
+assert torch.equal(Iq0.sort(1).values, Iq1.sort(1).values)
+with tempfile.TemporaryDirectory() as tmp:
+    save_hnsw(os.path.join(tmp, "h.npz"), h)
+    Dh2, Ih2 = load_hnsw(os.path.join(tmp, "h.npz"), xb, device="cpu").search(xq, 5, ef=20)
+    assert torch.equal(Ih2, Ih0) and torch.equal(Dh2, Dh0)
 ones = torch.ones((4, 8), dtype=torch.int32)
 assert ProbeGather.run(ones, torch.zeros((4, 1), dtype=torch.int32), steps=5).tolist() == [[5]] * 4
 assert ProbeDecodeStep.run(ones, torch.zeros((1, 8), dtype=torch.int32), steps=6).shape == (6, 8)

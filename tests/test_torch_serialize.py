@@ -325,22 +325,24 @@ def test_save_index_matches_jax(tmp_path, make):
 
 
 def test_save_index_trained_only_and_unported(tmp_path):
-    """A trained index without lists saves as JAX's; QINCo storage and the
-    HNSW quantizer raise on save and on load, naming what ports them."""
+    """A trained index without lists saves as JAX's, with the flat or the
+    HNSW quantizer; QINCo storage raises on save and on load, naming what
+    ports it."""
     rng = np.random.default_rng(4)
     xb = rng.standard_normal((200, 8)).astype(np.float32)
-    jidx = JaxIndexIVF(8, 4, storage="flat")
-    jidx.train(xb)
-    jpath, tpath = tmp_path / "jax.npz", tmp_path / "port.npz"
-    jax_save_index(jpath, jidx)
-    tidx = IndexIVF(8, 4, device="cpu")
-    tidx.centroids = torch.from_numpy(np.array(jidx.centroids))
-    save_index(tpath, tidx)
-    assert tpath.read_bytes() == jpath.read_bytes()
-    loaded = load_index(tpath, device="cpu")
-    assert loaded.ntotal == 0 and loaded.invlists is None
-    for attr, value, what in (("storage", "qinco", "Queue A 5"),
-                              ("quantizer", "hnsw", "Queue A 3")):
+    for quantizer in ("hnsw", "flat"):
+        jidx = JaxIndexIVF(8, 4, storage="flat", quantizer=quantizer, quantizer_efSearch=16)
+        jidx.train(xb)
+        jpath, tpath = tmp_path / "jax.npz", tmp_path / "port.npz"
+        jax_save_index(jpath, jidx)
+        tidx = IndexIVF(8, 4, quantizer=quantizer, quantizer_efSearch=16, device="cpu")
+        tidx.centroids = torch.from_numpy(np.array(jidx.centroids))
+        save_index(tpath, tidx)
+        assert tpath.read_bytes() == jpath.read_bytes()
+        loaded = load_index(tpath, device="cpu")
+        assert loaded.ntotal == 0 and loaded.invlists is None
+        assert (loaded.quantizer, loaded.quantizer_efSearch) == (quantizer, 16)
+    for attr, value, what in (("storage", "qinco", "Queue A 5"),):
         setattr(tidx, attr, value)
         with pytest.raises(NotImplementedError, match=what):
             save_index(tmp_path / "x.npz", tidx)

@@ -2,8 +2,8 @@
 ``vector_db_id_compression_tpu``.
 
 Lossless compression of the vector ids stored in an IVF index, searched with
-deferred id decoding, and of the neighbour lists of an NSG graph, searched
-with the decode inside the traversal, on one NVIDIA H100. The sub-layout
+deferred id decoding, and of the neighbour lists of an NSG or HNSW graph,
+searched with the decode inside the traversal, on one NVIDIA H100. The sub-layout
 mirrors the JAX package so that each module's counterpart has the same path:
 
   core/    MT19937 initial-bits pool, the host rANS state machine, the
@@ -14,7 +14,8 @@ mirrors the JAX package so that each module's counterpart has the same path:
            version of the ROC kernels), interleaved ROC, and the other id
            codecs in plain torch: packed bits, Elias-Fano, the wavelet tree
            and RRR-compressed bit planes
-  native/  the threaded C++ host ROC codec (g++ at first use, ctypes)
+  native/  the threaded C++ host ROC codec and the HNSW build's link loop
+           (g++ at first use, ctypes)
   ops/     the hand-written CUDA kernels (``csrc/``): build, binding, wrappers;
            the ROC encode and decode kernels and two decode-step probes
   store/   size buckets, the inverted-list containers (uncompressed, packed
@@ -22,13 +23,15 @@ mirrors the JAX package so that each module's counterpart has the same path:
            containers (dense, compact bits, Elias-Fano, per-node ROC,
            chained-block ROC)
   search/  k-means, the product quantizer, ``IndexIVF`` (flat and PQ
-           storage, flat quantizer; grouped or random-access translate), NSG
-           construction and the host and device best-first graph searches
+           storage, flat or HNSW quantizer; grouped or random-access
+           translate), NSG construction, HNSW (build, descent, search) and
+           the host and device best-first graph searches
+  utils/   artifact checksums and profiling helpers
 
 The package imports torch and numpy only; it never imports jax or the JAX
 package. The CUDA kernels are compiled with ``nvcc`` at first use
 (``ops/_build.py``); on CPU tensors every wrapper runs its plain version.
-The native host codec is compiled with ``g++`` at first use
+The native host code is compiled with ``g++`` at first use
 (``native/__init__.py``).
 """
 

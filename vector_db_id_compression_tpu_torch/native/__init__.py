@@ -1,16 +1,21 @@
-"""Native host ROC codec: ctypes bindings over ``roc_native.cpp``.
+"""Native host code: ctypes bindings over ``roc_native.cpp`` and
+``hnsw_native.cpp``.
 
-The C++ source is a copy of the JAX package's ``native/roc_native.cpp``: a
-list-parallel (std::thread) batch encode and decode, bit-exact with the
+``roc_native.cpp`` is a copy of the JAX package's ``native/roc_native.cpp``:
+a list-parallel (std::thread) batch ROC encode and decode, bit-exact with the
 Python host codec (``codecs/roc.py``), the lane-batched torch codec and the
 CUDA kernels. It never runs on the search path: it is the single-core host
 baseline and a third witness of the stream format.
 
-``g++`` builds it at first use into the package's ignored ``_build/``
-directory (``libroc_native.so``), under a temporary name renamed into place,
-so that processes building at once never load a half-written library. There
-is no fallback: without ``g++``, or when the build fails, the first call
-raises with the compiler's output.
+``hnsw_native.cpp`` is the HNSW build's link assignment (``hnsw_link``), the
+order-dependent host loop of ``search/hnsw.py``, with the JAX package's numpy
+float32 distance arithmetic bit for bit.
+
+``g++`` builds each source at first use into the package's ignored
+``_build/`` directory (``lib<source>.so``), under a temporary name renamed
+into place, so that processes building at once never load a half-written
+library. There is no fallback: without ``g++``, or when the build fails, the
+first call raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -26,36 +31,41 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "roc_native.cpp"
+HNSW_SOURCE = SOURCE.parent / "hnsw_native.cpp"
 LIBRARY = SOURCE.parent.parent / "_build" / "libroc_native.so"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# no reassociation or fused multiply-add: hnsw_native.cpp reproduces numpy's
+# float32 sums
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 
-def build() -> Path:
-    """Compile the library if it is missing or older than the source;
-    returns its path. Raises RuntimeError if ``g++`` is missing or fails."""
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return LIBRARY
-    LIBRARY.parent.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=LIBRARY.parent)
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` into ``_build/lib<stem>.so`` if the library is
+    missing or older than the source; returns its path. Raises RuntimeError
+    if ``g++`` is missing or fails."""
+    library = LIBRARY.parent / f"lib{source.stem}.so"
+    if library.exists() and library.stat().st_mtime >= source.stat().st_mtime:
+        return library
+    library.parent.mkdir(exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=library.parent)
     os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", tmp]
+    cmd = ["g++", *GXX_FLAGS, str(source), "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
         os.unlink(tmp)
-        raise RuntimeError("g++ not found: the native ROC codec cannot be built") from e
+        raise RuntimeError(f"g++ not found: {source.name} cannot be built") from e
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"{' '.join(cmd)}\nexited with code {proc.returncode}:\n"
                            f"{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    os.replace(tmp, library)
+    return library
 
 
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed and load the library, every entry point's argument
-    types declared."""
+    """Build if needed and load the ROC codec library, every entry point's
+    argument types declared."""
     lib = ctypes.CDLL(str(build()))
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C")
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C")
@@ -69,6 +79,61 @@ def load_library() -> ctypes.CDLL:
     lib.roc_decode_lists.argtypes = [u64p, u32p, ctypes.c_int32, i32p, i64p, I, i32p,
                                      u64p, I]
     return lib
+
+
+@lru_cache(maxsize=None)
+def load_hnsw_library() -> ctypes.CDLL:
+    """Build if needed and load the HNSW link library."""
+    lib = ctypes.CDLL(str(build(HNSW_SOURCE)))
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    L = ctypes.c_int64
+    lib.hnsw_link.restype = ctypes.c_int
+    lib.hnsw_link.argtypes = [i32p, L, f32p, L, i64p, i64p, L, i64p, L, L, ctypes.c_int, i64p]
+    lib.hnsw_pair_dists.restype = None
+    lib.hnsw_pair_dists.argtypes = [f32p, L, L, i64p, L, f32p]
+    return lib
+
+
+def _c_array(a: np.ndarray, dtype, name: str) -> np.ndarray:
+    if a.dtype != dtype or not a.flags.c_contiguous:
+        raise ValueError(f"{name} must be a C-contiguous {np.dtype(dtype).name} array")
+    return a
+
+
+def hnsw_link(adj: np.ndarray, xb: np.ndarray, pts: np.ndarray, sub: np.ndarray,
+              sel: np.ndarray, mcap: int, relink: bool, cur: np.ndarray) -> None:
+    """The HNSW link assignment of one insert batch on one layer, in place:
+    ``adj`` i32[N, cap] (cap = ``mcap``), ``xb`` f32[N, d], ``pts`` i64[B] the
+    batch, ``sub`` i64[n] the batch positions at this level, ``sel``
+    i64[n, out_deg] their pools closest first, ``cur`` i64[B] walk entries
+    (updated)."""
+    _c_array(adj, np.int32, "adj")
+    _c_array(xb, np.float32, "xb")
+    _c_array(cur, np.int64, "cur")
+    pts, sub, sel = (np.ascontiguousarray(a, dtype=np.int64) for a in (pts, sub, sel))
+    N, cap = adj.shape
+    if cap != mcap or xb.shape[0] != N or sel.shape[0] != len(sub) or cur.shape != pts.shape:
+        raise ValueError("hnsw_link: inconsistent shapes")
+    if len(sub) and not (0 <= sub.min() and sub.max() < len(pts)):
+        raise ValueError("hnsw_link: batch positions out of range")
+    if len(pts) and not (0 <= pts.min() and pts.max() < N) or (sel.size and sel.max() >= N):
+        raise ValueError("hnsw_link: node ids out of range")
+    load_hnsw_library().hnsw_link(adj, cap, xb, xb.shape[1], pts, sub, len(sub), sel,
+                                  sel.shape[1], mcap, int(relink), cur)
+
+
+def hnsw_pair_dists(xb: np.ndarray, v: int, cand: np.ndarray) -> np.ndarray:
+    """f32 distances from node ``v`` to the nodes ``cand`` (-1 → inf), as
+    ``hnsw_link`` computes them."""
+    _c_array(xb, np.float32, "xb")
+    cand = np.ascontiguousarray(cand, dtype=np.int64)
+    if cand.size and cand.max() >= len(xb) or not 0 <= v < len(xb):
+        raise ValueError("hnsw_pair_dists: node ids out of range")
+    out = np.empty(len(cand), dtype=np.float32)
+    load_hnsw_library().hnsw_pair_dists(xb, xb.shape[1], v, cand, len(cand), out)
+    return out
 
 
 def default_threads() -> int:

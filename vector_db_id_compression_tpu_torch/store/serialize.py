@@ -6,9 +6,10 @@ package loads in the other. A file per IVF container holds its codec's state
 (ANS heads and stacks with lengths and precisions, Elias-Fano words and
 parameters, packed words, wavelet-tree planes) and the payload codes in the
 container's order (sampling order for ROC, ascending ids for Elias-Fano); a
-file per graph container holds its adjacency in its codec. Loading rebuilds a
-working container on ``device`` (the card unless the caller says
-``device="cpu"``) without the uncompressed lists.
+file per graph container holds its adjacency in its codec; a file per HNSW
+index holds its levels and layers. Loading rebuilds a working container or
+index on ``device`` (the card unless the caller says ``device="cpu"``)
+without the uncompressed lists.
 
 The format is the JAX package's, layout and dtypes:
   - its IVF containers keep one state per size bucket (``b{bi}_*`` arrays;
@@ -441,3 +442,35 @@ def _graph_decoder(z, lengths: torch.Tensor, prec: torch.Tensor, n_symbols: int,
         stack_len=_tensor(stack_len, device), mt_ctr=_tensor(z["mt_ctr"], device),
         err=torch.zeros(len(stack_len), dtype=torch.bool, device=device))
     return RocDecoder(states, lengths, prec, rd.default_pool(n_symbols, device), K)
+
+
+# ---------------------------------------------------------------------------
+# HNSW index (all layers and their metadata)
+# ---------------------------------------------------------------------------
+
+
+def save_hnsw(path: Union[str, Path], h) -> None:
+    """Write an HNSW index (``search.hnsw.HNSW``: its levels, layers, entry
+    point and parameters; the vectors are the caller's to store) as the JAX
+    package's ``save_hnsw`` does."""
+    arrs = {
+        "levels": np.asarray(h.levels),
+        "meta": np.array([h.M, h.Mmax0, h.entry, h.max_level, int(h.ef_construction), h.seed],
+                         dtype=np.int64),
+    }
+    for l, layer in enumerate(h.layers):
+        arrs[f"layer{l}"] = layer
+    _savez(path, arrs, dict(magic=MAGIC, kind="hnsw"))
+
+
+def load_hnsw(path: Union[str, Path], xb, device=DEFAULT_DEVICE):
+    """The HNSW index an artifact of either package holds, over the
+    caller's vectors ``xb`` (numpy or a tensor), on ``device``."""
+    from ..search.hnsw import HNSW
+
+    device = resolve(device)
+    z, _ = _open(path, {"hnsw": None})
+    with z:
+        M, _, entry, max_level, efc, seed = (int(v) for v in z["meta"])
+        return HNSW.from_arrays(z["levels"], [z[f"layer{l}"] for l in range(max_level + 1)],
+                                entry, max_level, M, efc, seed, xb, device=device)
