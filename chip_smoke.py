@@ -17,7 +17,10 @@ of those paths goes through the artifact format: saved, stamped, verified,
 loaded onto the card and searched again. The HNSW path: IVF65536_HNSW32,Flat
 over the same database (an HNSW of M = 32 over the 65,536 centroids as the
 coarse quantizer, nprobe = 64), with the ids ROC-compressed per list and the
-quantizer's level-0 graph in the five containers. Phases:
+quantizer's level-0 graph in the five containers. The QINCo path:
+IVF65536,QINCo16x8 over the same database (a neural residual codec of 16
+one-byte codes per vector), a shortlist of 100 at nprobe 64 with ROC ids,
+re-ranked through the codec's decoder. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -30,9 +33,11 @@ quantizer's level-0 graph in the five containers. Phases:
   4. main     train, add, search uncompressed, swap in the ROC container,
               search again; the ROC search must return the uncompressed
               search's rows (ids are lossless); both kernels must have been
-              launched by that path; then bits/id and phase times, and each
-              search under torch.profiler (wall and device ms, idle share,
-              the kernels with the most device time)
+              launched by that path; the full-probe search (nprobe 1024,
+              every size bucket through the dense all-pairs scan) must equal
+              brute force on the 1000 queries up to ties; then bits/id and
+              phase times, and each search under torch.profiler (wall and
+              device ms, idle share, the kernels with the most device time)
   5. codecs   the paper's other IVF id codecs on main's index: packed bits,
               Elias-Fano and the wavelet tree with plain and with RRR planes,
               each built on the card; every list recovered by decode_lists,
@@ -55,8 +60,9 @@ quantizer's level-0 graph in the five containers. Phases:
               containers: identical I and D or the run fails; every ROC
               kernel must have been launched by this phase; the host-loop
               search (search_graph, a separate walk) must give
-              the same I on 32 queries; then bits/edge, hops, recall and
-              search times
+              the same I on 32 queries; then bits/edge (with REC's, the
+              Polya-urn model of codecs/rec.py, beside the ROC graphs'), hops,
+              recall and search times
   8. serialize  the artifact format on what the earlier phases built: the
               flat index (save_index) with its ROC, packed-bits, Elias-Fano
               and both wavelet-tree containers, the PQ16 index with its
@@ -86,16 +92,32 @@ quantizer's level-0 graph in the five containers. Phases:
               search times (the coarse walk with its hops, the scan, the
               translate; the flat quantizer beside), bits/id and bits/edge,
               recall and the probes' overlap with the exact top 64
- 10. probes   the two decode-step probes against their plain versions
- 11. chain    the chain probe (the codec's serial chain, no rank or select
+ 10. qinco    IVF65536,QINCo16x8 (M 16, ksub 256, hidden 256; the paper's
+              Table 4 point, cut to the 10^6 database): [hnsw]'s centroids,
+              the codec trained on its training vectors' residuals (RQ init,
+              300 Adam steps of 256), add (encode), the search with
+              return_codes=2 and a shortlist of 100 at nprobe 64, re-ranked
+              through the neural decoder, then the same with
+              RocInvertedLists; it fails unless the ROC search returns the
+              uncompressed shortlist (ids and codes) and the same re-ranked
+              ids, every list's ids come back from the ROC container, both
+              ROC kernels ran, the card's encode and decode equal the CPU's
+              on 4096 vectors (codes but for near ties, decode within 1e-4),
+              and the index saved and loaded searches and re-ranks as
+              before; then bits/id, the training, encode, add and search
+              times (positional, harvest, translate, re-rank), recall of the
+              re-ranked and the linear ranking, the idle share, the file
+ 11. probes   the two decode-step probes against their plain versions
+ 12. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
- 12. timing   each kernel beside its plain version at its paths' shapes:
+ 13. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
-              entries, at the graph's (per node and chained), and at
-              [hnsw]'s (its 65,536 lists, its level-0 graph), bit-equal
+              entries, at the graph's (per node and chained), at [hnsw]'s
+              (its 65,536 lists, its level-0 graph) and at [qinco]'s (its
+              65,536 lists, the lists one search touches), bit-equal
               or the run fails; the native host codec over the PQ index's
               1024 lists, equal to the kernels' streams or the run fails;
               then one line per kernel with its time, its bound, its chain
@@ -139,6 +161,12 @@ NQ_HOST = 32  # queries the host-loop search checks the device walk on
 # vectors per centroid (Faiss asks for at least 30)
 HNSW_NLIST, HNSW_NPROBE, HNSW_M, HNSW_EF = 65536, 64, 32, 64
 HNSW_NT = 2 ** 21
+# [qinco]: IVF65536,QINCo16x8 at nprobe 64, shortlist 100 (the paper's Table 4
+# BigANN10M point, IVF65k_16x8; the JAX package's own run of it: M 16, ksub
+# 256, hidden 256, 300 Adam steps of its default batch of 256); the card's
+# codec is held against the CPU's on QINCO_CHECK vectors
+QINCO_M, QINCO_KSUB, QINCO_HIDDEN, QINCO_STEPS, QINCO_BATCH = 16, 256, 256, 300, 256
+QINCO_NPROBE, QINCO_NSHORT, QINCO_CHECK = 64, 100, 4096
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores, the table's scalar rate, for the
 # kernels' integer compares
@@ -164,6 +192,24 @@ def cuda_ms(fn):
 def median_ms(fn, reps: int = 5) -> float:
     fn()  # warm-up
     return float(np.median([cuda_ms(fn)[0] for _ in range(reps)]))
+
+
+def host_s(fn):
+    """(host-clock seconds of ``fn`` synchronised with the card, its result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def timed(spans: dict, name: str, fn):
+    """``fn`` wrapped to add its host-clock seconds (synchronised with the
+    card) to ``spans[name]``."""
+    def run(*args, **kwargs):
+        t, out = host_s(lambda: fn(*args, **kwargs))
+        spans[name] = spans.get(name, 0.0) + t
+        return out
+    return run
 
 
 def max_abs_err(got, want) -> float:
@@ -504,14 +550,21 @@ def phase_main(xt, xb, xq):
     D_bf, I_bf = torch.topk(d2, K + 1, dim=1, largest=False)
     recall = float((I1[:, :, None] == I_bf[:, None, :K]).any(2).float().mean())
     I_bf = I_bf[:, :K]
-    Df, If = index.search(xq[:32], K, nprobe=NLIST)
-    torch.testing.assert_close(Df, D_bf[:32, :K], rtol=1e-4, atol=1e-3)
-    tie = (D_bf[:32, K] - D_bf[:32, K - 1]).abs() <= 1e-3 + 1e-4 * D_bf[:32, K].abs()
-    same = (If.sort(1).values == I_bf[:32, :K].sort(1).values).all(1)
+    # full probe: every bucket takes the dense scan, and the search is exact
+    paths, (Df, If) = scan_paths(lambda: index.search(xq, K, nprobe=NLIST))
+    torch.testing.assert_close(Df, D_bf[:, :K], rtol=1e-4, atol=1e-3)
+    tie = (D_bf[:, K] - D_bf[:, K - 1]).abs() <= 1e-3 + 1e-4 * D_bf[:, K].abs()
+    same = (If.sort(1).values == I_bf.sort(1).values).all(1)
     if not bool((same | tie).all()):
         raise AssertionError("full-probe search differs from brute force")
-    log(f"[main] full probe == brute force on 32 queries; recall@{K} of nprobe={NPROBE} "
-        f"vs brute force: {recall:.4f}")
+    if paths["pairs"] or len(paths["dense"]) != len(index._scan):
+        raise AssertionError(f"full probe: not every bucket took the dense scan: {paths}")
+    full_ms = median_ms(lambda: index.search(xq, K, nprobe=NLIST))
+    log(f"[main] full probe (nprobe {NLIST}) == brute force on {NQ} queries (D within rtol "
+        f"1e-4 atol 1e-3, sorted I rows equal or a tie at slot {K}; rows with a tie "
+        f"{int(tie.sum())}, rows that differ {int((~same).sum())}); buckets by scan: dense "
+        f"{len(paths['dense'])}, pairs {len(paths['pairs'])} of {len(index._scan)}; recall@{K} "
+        f"of nprobe={NPROBE} vs brute force: {recall:.4f}")
     del xb_d, d2
 
     times = {}
@@ -522,8 +575,33 @@ def phase_main(xt, xb, xq):
         f"(container build) {t_roc:.1f}; search ({NQ} queries, median of 5 after a warm-up) "
         "= positional + translate: " + "; ".join(
             f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} touched lists)"
-            for name, t in times.items()))
+            for name, t in times.items())
+        + f"; full probe (nprobe {NLIST}, ROC, dense scan) {full_ms:.2f}")
     return index, roc, launches, I_bf[:, :K]
+
+
+def scan_paths(fn):
+    """(the scan buckets, by identity, that ``fn``'s searches sent through
+    the dense and through the pair scan of ``search/ivf.py``, fn's result)."""
+    from vector_db_id_compression_tpu_torch.search import ivf
+
+    seen = {"dense": set(), "pairs": set()}
+    dense, pairs = ivf._scan_flat_dense, ivf._scan_flat_pairs
+
+    def dense_spy(xq, sb, k):
+        seen["dense"].add(id(sb))
+        return dense(xq, sb, k)
+
+    def pairs_spy(xq, sb, *args):
+        seen["pairs"].add(id(sb))
+        return pairs(xq, sb, *args)
+
+    ivf._scan_flat_dense, ivf._scan_flat_pairs = dense_spy, pairs_spy
+    try:
+        out = fn()
+    finally:
+        ivf._scan_flat_dense, ivf._scan_flat_pairs = dense, pairs
+    return seen, out
 
 
 def device_ops(fn):
@@ -643,15 +721,21 @@ def profile_search(index, xq, what: str, reps: int = 3, nprobe: int = NPROBE) ->
     per search: wall ms (host clock), device ms (the kernels' self times),
     the idle share (1 - device / wall) and the three kernels with the most
     device time."""
+    profile_fn(lambda: index.search_defer_id_decoding(xq, k=K, nprobe=nprobe), f"{what} search",
+               reps)
+
+
+def profile_fn(fn, what: str, reps: int = 3):
+    """``profile_search`` for any call ``fn``; returns its idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    index.search_defer_id_decoding(xq, k=K, nprobe=nprobe)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            index.search_defer_id_decoding(xq, k=K, nprobe=nprobe)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     # device-side events only: the CPU ops that launch them carry their time too
@@ -659,9 +743,10 @@ def profile_search(index, xq, what: str, reps: int = 3, nprobe: int = NPROBE) ->
              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
     device = sum(times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
-    log(f"[profile] {what} search (torch.profiler, {reps} searches): wall {wall:.2f} ms, "
+    log(f"[profile] {what} (torch.profiler, {reps} calls): wall {wall:.2f} ms, "
         f"device {device:.2f} ms, idle share {1 - device / wall:.2f}; most device time: "
         + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top))
+    return 1 - device / wall
 
 
 def phase_pq(xt, xb, xq, I_bf, flat_max_len: int):
@@ -775,6 +860,9 @@ def phase_graph(xb, xq, I_bf):
     medoid, the dense graph's search (D, I), this phase's launch counts, the
     nearest node found per query: one fetch's worth of nodes for the timing,
     the chained kernels' launches per search or build)."""
+    from vector_db_id_compression_tpu_torch.codecs.rec import Graph as RecGraph
+    from vector_db_id_compression_tpu_torch.codecs.rec import (PolyasUrnModel,
+                                                               friend_to_edgelist_repr)
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
@@ -852,6 +940,19 @@ def phase_graph(xb, xq, I_bf):
             f"{c.compressed_ids_size_in_bytes * 8 / edges:.4f} "
             f"({(c.compressed_ids_size_in_bytes + c.overhead_in_bytes) * 8 / edges:.4f} "
             f"with overhead_in_bytes; 32 for the raw int32 adjacency)")
+    # the paper's Table 3: REC's bits/edge (the Polya-urn model of the edge
+    # list, directed) beside the two ROC graphs'
+    t0 = time.perf_counter()
+    edge_list = friend_to_edgelist_repr(g.adjacency)
+    _, rec_bpe = PolyasUrnModel(g.N, edges).compute_bpe(RecGraph(edge_list, g.N, edges))
+    t_rec = (time.perf_counter() - t0) * 1e3
+    if edge_list.shape != (edges, 2) or not 0 < rec_bpe < 32:
+        raise AssertionError(f"REC: {tuple(edge_list.shape)} edges, {rec_bpe} bits/edge")
+    log(f"[graph] REC (Polya urn, directed, codecs/rec.py) over the {edges} edges: "
+        f"{rec_bpe:.4f} bits/edge ({t_rec:.1f} ms, host clock); RocGraph "
+        f"{roc.compressed_ids_size_in_bytes * 8 / edges:.4f}, RocBlockGraph "
+        f"{blk.compressed_ids_size_in_bytes * 8 / edges:.4f} (+ overhead "
+        f"{blk.overhead_in_bytes * 8 / edges:.4f})")
     r1, r10 = recalls(I0, I_bf)
     log(f"[graph] {hops} hops (decode launches of one RocGraph search), max_iters "
         f"cap hit: {capped}; recall@1 {r1:.4f}, recall@{K} {r10:.4f} against brute force")
@@ -1050,12 +1151,6 @@ def phase_hnsw(xt, xb, xq, I_bf):
     cuda = torch.device("cuda")
     xq_d, xb_d = torch.from_numpy(xq).to(cuda), torch.from_numpy(xb).to(cuda)
 
-    def host_s(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
     # ---- the [hnsw] path, through the user-facing entry points; the
     # kernels' launch counts are read from this window only
     RocEncoder.launches = RocEncoder.chained_launches = 0
@@ -1246,6 +1341,234 @@ def phase_hnsw(xt, xb, xq, I_bf):
             f"clock); loaded and searched: I and D identical to the built")
     index.replace_invlists(roc)
     return index, roc, containers, Ig[:, 0], launches, per_unit
+
+
+def rerank(index, xq_d, I, codes, k: int):
+    """The JAX package's QINCo bench script's neural re-rank of a shortlist
+    (bench/search_ivf_qinco.py:150-168), on the card: each listno from the
+    codes' coarse prefix (clipped), ``qinco.decode`` of the M code bytes plus
+    the list's centroid, the exact L2 (inf where I < 0), the k smallest.
+    Empty slots decode code 0 instead of 0xff (their distance is inf either
+    way). Returns (the L2 f32[nq, k], the ids i64[nq, k])."""
+    pfx, m = index.coarse_code_size, index.qinco.M
+    flat = codes.reshape(-1, codes.shape[-1]).long()
+    listnos = torch.zeros(flat.shape[0], dtype=torch.int64, device=flat.device)
+    for b in range(pfx):
+        listnos |= flat[:, b] << (8 * b)
+    listnos = listnos.clamp(0, index.nlist - 1)
+    qc = torch.where(I.reshape(-1, 1) >= 0, flat[:, pfx:pfx + m], 0)
+    dec = index.qinco.decode(qc) + index.centroids[listnos]
+    diff = dec.reshape(*I.shape, -1) - xq_d[:, None, :]
+    d2 = torch.where(I >= 0, (diff * diff).sum(dim=2), float("inf"))
+    order = torch.argsort(d2, dim=1)[:, :k]
+    return torch.gather(d2, 1, order), torch.gather(I, 1, order)
+
+
+def qinco_code_ties(codec, x, got, want, tie: float = 1e-5) -> int:
+    """Code rows ``got`` and ``want`` u8[n, M] of the vectors ``x`` (CPU
+    tensors): equal, or the first step at which a row differs is a near tie
+    under ``codec``'s model (on the CPU): the two chosen candidates'
+    distances within ``tie`` relative. Raises otherwise; returns the rows
+    that differ."""
+    rows = torch.nonzero((got != want).any(dim=1))[:, 0].tolist()
+    model = codec.model
+    with torch.no_grad():
+        for r in rows:
+            m = int(torch.nonzero(got[r] != want[r])[0, 0])
+            x_hat = torch.zeros((1, x.shape[1]))
+            for j in range(m):
+                x_hat = x_hat + model.steps[j].selected(x_hat, want[r:r + 1, j].long())
+            d2 = ((model.steps[m](x_hat)[0] - (x[r] - x_hat)) ** 2).sum(-1)
+            a, b = float(d2[int(got[r, m])]), float(d2[int(want[r, m])])
+            if abs(a - b) > tie * max(abs(a), abs(b)):
+                raise AssertionError(f"[qinco] vector {r}: codes differ at step {m} without a "
+                                     f"near tie ({a} against {b})")
+    return len(rows)
+
+
+def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
+    """IVF65536,QINCo16x8 with the flat quantizer over the [main] database,
+    the shortlist re-ranked through the neural decoder: the paper's Table 4
+    operating point (BigANN10M, IVF65k_16x8, nprobe 64, nshort 100), cut to
+    the same 10^6 database vectors as every phase (the run's time limit). The
+    65,536 centroids are [hnsw]'s k-means (over ``xt``, 2^21 vectors of the
+    mixture), assigned directly; the codec is trained on ``xt``'s residuals
+    to them, as ``IndexIVF.train`` trains it after its k-means. Then add,
+    the search with the uncompressed lists and with RocInvertedLists (the
+    shortlist's codes harvested), each re-ranked; fails unless the ROC
+    search returns the uncompressed search's shortlist and re-ranked ids,
+    every list's ids come back from the ROC container, both ROC kernels ran,
+    the card's codec equals the CPU's on QINCO_CHECK vectors, and the index
+    saved and loaded searches as before. Returns (the index, its ROC
+    container, this phase's launch counts)."""
+    from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index, save_index
+    from vector_db_id_compression_tpu_torch.search.kmeans import assign
+    from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+
+    cuda = torch.device("cuda")
+    xq_d = torch.from_numpy(xq).to(cuda)
+    xt_d = torch.from_numpy(xt).to(cuda)
+    resid = xt_d - centroids[assign(xt_d, centroids)]
+    del xt_d
+    spans = {}
+
+    def search():
+        return index.search_defer_id_decoding(xq, QINCO_NSHORT, nprobe=QINCO_NPROBE,
+                                              return_codes=2)
+
+    # ---- the [qinco] path, through the user-facing entry points; the
+    # kernels' launch counts are read from this window only
+    RocEncoder.launches = RocDecoder.launches = 0
+    codec = QincoCodec(D, QINCO_M, QINCO_KSUB, QINCO_HIDDEN, seed=seed, device=cuda)
+    index = IndexIVF(D, HNSW_NLIST, storage="qinco", nprobe=QINCO_NPROBE, qinco=codec,
+                     device=cuda)
+    index.centroids = centroids
+    codec._rq_init = timed(spans, "rq_init", codec._rq_init)
+    t_train, _ = host_s(lambda: codec.train(resid, steps=QINCO_STEPS, batch_size=QINCO_BATCH))
+    del codec._rq_init
+    codec.encode = timed(spans, "encode", codec.encode)
+    t_add, _ = host_s(lambda: index.add(xb))
+    del codec.encode
+    D0, I0, C0 = search()
+    R0 = rerank(index, xq_d, I0, C0, K)
+    t_roc, roc = cuda_ms(lambda: RocInvertedLists(index.invlists, device=cuda))
+    index.replace_invlists(roc)
+    D1, I1, C1 = search()
+    R1 = rerank(index, xq_d, I1, C1, K)
+    torch.cuda.synchronize()
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+    # ----
+    if min(launches.values()) < 1:
+        raise AssertionError(f"[qinco] a kernel of the path was not launched: {launches}")
+    lengths = index.invlists.lengths
+    log(f"[qinco] IVF{HNSW_NLIST},QINCo{QINCO_M}x{QINCO_KSUB.bit_length() - 1} (hidden "
+        f"{QINCO_HIDDEN}) over {index.ntotal} vectors, [hnsw]'s centroids: codec trained on "
+        f"{len(xt)} residuals in {t_train:.1f} s (RQ init {spans['rq_init']:.1f} s, "
+        f"{QINCO_STEPS} Adam steps of {QINCO_BATCH} {t_train - spans['rq_init']:.1f} s, final "
+        f"loss {codec.loss:.4f}); add {t_add:.1f} s, of which encode {spans['encode']:.1f} s "
+        f"({index.ntotal / spans['encode']:.0f} vectors/s); list lengths {lengths.min()}.."
+        f"{lengths.max()} (mean {lengths.mean():.2f}, {int((lengths == 0).sum())} empty); "
+        f"code bytes per vector {index.code_size} ({QINCO_M} codes + 4 norm); launches "
+        f"{launches} (host clock, synchronised)")
+
+    # gate 1: the ROC search returns the uncompressed shortlist (the same
+    # entries' codes) and the same re-ranked ids
+    for name, (Dx, Ix, Cx) in (("uncompressed", (D0, I0, C0)), ("ROC", (D1, I1, C1))):
+        width = index.coarse_code_size + index.code_size
+        if (Ix.shape != (NQ, QINCO_NSHORT) or Cx.shape != (NQ, QINCO_NSHORT, width)
+                or int(Ix.max()) >= NB or not bool(torch.isfinite(Dx[Ix >= 0]).all())):
+            raise AssertionError(f"[qinco] {name} search: bad shapes, ids or distances")
+    o0, o1 = I0.argsort(dim=1), I1.argsort(dim=1)
+    rows = torch.arange(NQ, device=cuda)[:, None]
+    if not (torch.equal(I0.gather(1, o0), I1.gather(1, o1))
+            and torch.equal(C0[rows, o0], C1[rows, o1])):
+        raise AssertionError("[qinco] the ROC search's shortlist (ids or codes) differs from "
+                             "the uncompressed search's")
+    torch.testing.assert_close(D1, D0, rtol=1e-4, atol=1e-3)
+    ties = assert_near_ties("[qinco] re-rank after the ROC search", *R1, *R0, 1e-6, 1e-6)
+    # gate 2: every list's ids from the ROC container
+    big = torch.iinfo(torch.int64).max
+    for lo in range(0, HNSW_NLIST, 8192):
+        hi = min(lo + 8192, HNSW_NLIST)
+        ids, lens = roc.decode_lists(torch.arange(lo, hi, device=cuda))
+        cols = torch.arange(ids.shape[1], device=cuda)[None, :]
+        got = torch.where(cols < lens[:, None], ids, big).sort(dim=1).values.cpu().numpy()
+        for i, ln in enumerate(range(lo, hi)):
+            n = int(lengths[ln])
+            want = np.sort(index.invlists.ids[ln].view(np.int64))
+            if int(lens[i]) != n or not np.array_equal(got[i, :n], want):
+                raise AssertionError(f"[qinco] list {ln}: the ROC container's ids differ")
+    log(f"[qinco] RocInvertedLists search (nprobe {QINCO_NPROBE}, shortlist {QINCO_NSHORT}, "
+        f"return_codes=2) == uncompressed: the same ids and entry codes per row, D within "
+        f"rtol 1e-4 atol 1e-3 (identical: {torch.equal(D1, D0)}); re-ranked top {K} equal "
+        f"under the near-tie rule, rtol 1e-6 (labels at near ties {ties}); every list's ids "
+        f"recovered by decode_lists; "
+        f"bits/id {roc.compressed_ids_size_in_bytes * 8 / NB:.4f} + overhead "
+        f"{roc.overhead_in_bytes * 8 / NB:.4f} (built in {t_roc:.1f} ms)")
+
+    # gate 3: the card's codec against the same weights on the CPU
+    cpu = QincoCodec(D, QINCO_M, QINCO_KSUB, QINCO_HIDDEN, device="cpu").load_state_dict(
+        {k: v.cpu() for k, v in codec.model.state_dict().items()})
+    xs = xb[:QINCO_CHECK] - centroids[assign(torch.from_numpy(xb[:QINCO_CHECK]).to(cuda),
+                                             centroids)].cpu().numpy()
+    t_cpu, codes_cpu = host_s(lambda: cpu.encode(xs))
+    codes_card = codec.encode(xs).cpu()
+    differ = qinco_code_ties(cpu, torch.from_numpy(xs), codes_card, codes_cpu)
+    rec_err = float((codec.decode(codes_card).cpu() - cpu.decode(codes_card)).abs().max())
+    if rec_err > 1e-4:
+        raise AssertionError(f"[qinco] decode on the card vs the CPU: max error {rec_err}")
+    log(f"[qinco] the card's codec == the CPU's on {QINCO_CHECK} residuals: codes equal but "
+        f"{differ} rows (each at a near tie, 1e-5 relative), decode max abs error {rec_err:.2e} "
+        f"(<= 1e-4); CPU encode {t_cpu:.1f} s")
+
+    # reports: the search's parts, the re-rank, recall, the idle share
+    _, L = index.search_positional(xq, QINCO_NSHORT, QINCO_NPROBE)
+    pos_ms = median_ms(lambda: index.search_positional(xq, QINCO_NSHORT, QINCO_NPROBE))
+    harvest_ms = median_ms(lambda: index._harvest_codes(L, True))
+    translate_ms = median_ms(lambda: index._translate(L))
+    search_ms = median_ms(search)
+    rerank_ms = median_ms(lambda: rerank(index, xq_d, I1, C1, K))
+    idle = profile_fn(lambda: rerank(index, xq_d, *search()[1:], K),
+                      f"IVF{HNSW_NLIST},QINCo{QINCO_M} ROC search + re-rank")
+    rec = {"re-ranked": recalls(R1[1], I_bf), f"linear (the scan's top {K})": recalls(I1[:, :K],
+                                                                                      I_bf)}
+    hit = float((R1[1] == I_bf[:, :1]).any(1).float().mean())
+    log(f"[qinco] ms ({NQ} queries, CUDA-event medians of 5 after a warm-up): search "
+        f"{search_ms:.2f} = positional {pos_ms:.2f} + harvest {harvest_ms:.2f} + translate "
+        f"{translate_ms:.2f} ({int(torch.unique(L[L >= 0] >> 32).numel())} touched lists); "
+        f"re-rank {rerank_ms:.2f} ({NQ * QINCO_NSHORT} decodes); idle share of search + "
+        f"re-rank {idle:.2f}; recall@1, recall@{K} against brute force: " + ", ".join(
+            f"{name} {r[0]:.4f}, {r[1]:.4f}" for name, r in rec.items())
+        + f"; the true nearest in the re-ranked top {K}: {hit:.4f}")
+
+    # gate 4: the index saved, loaded and searched as before (the file holds
+    # the uncompressed lists)
+    with tempfile.TemporaryDirectory() as tmp:
+        r, li = round_trip(Path(tmp) / "artifact.npz", "[qinco] index", index, save_index,
+                           lambda p: load_index(p, device=cuda))
+    Dl, Il, Cl = li.search_defer_id_decoding(xq, QINCO_NSHORT, nprobe=QINCO_NPROBE,
+                                             return_codes=2)
+    Rl = rerank(li, xq_d, Il, Cl, K)
+    if not all(torch.equal(a, b) for a, b in ((Dl, D0), (Il, I0), (Cl, C0), *zip(Rl, R0))):
+        raise AssertionError("[qinco] the loaded index searches or re-ranks otherwise")
+    log(f"[qinco] index (save_index, QINCo weights as {5 * QINCO_M} leaves): {r['bytes']} "
+        f"bytes; save {r['save_ms']:.1f}, stamp {r['stamp_ms']:.1f}, verify "
+        f"{r['verify_ms']:.1f}, load {r['load_ms']:.1f} ms (host clock); loaded and searched: "
+        f"D, I, codes and the re-rank identical to the built index's")
+    return index, roc, launches
+
+
+def time_qinco_kernels(index, roc, xq):
+    """Both ROC kernels beside their plain versions over [qinco]'s 65,536
+    lists (``lane_kernels_vs_plain_by_bucket``), and the decode of the lists
+    one search's translate touches. Returns the numbers by kernel (keys
+    prefixed ``qinco_``)."""
+    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+
+    sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
+    enc_ms, enc_plain_ms, enc_err, dec_ms, dec_plain_ms, dec_err = \
+        lane_kernels_vs_plain_by_bucket(sorted_ids, lengths, prec, roc.decoder)
+    if enc_err or dec_err:
+        raise AssertionError(f"kernels vs plain at [qinco]'s {HNSW_NLIST} lists: encode "
+                             f"{enc_err}, decode {dec_err}")
+    _, L = index.search_positional(xq, QINCO_NSHORT, QINCO_NPROBE)
+    touched = torch.unique(L[L >= 0] >> 32)
+    touched_ms = median_ms(lambda: roc.decoder.decode_lanes(touched))
+    log(f"[timing] qinco, {HNSW_NLIST} lists, n_max {sorted_ids.shape[1]}: encode kernel "
+        f"{enc_ms:.3f} ms vs plain {enc_plain_ms:.1f} ms; decode kernel {dec_ms:.3f} ms vs "
+        f"plain {dec_plain_ms:.1f} ms (plain: by size bucket, summed); decode of the "
+        f"{touched.numel()} lists one search touches {touched_ms:.3f} ms; both == plain == the "
+        f"container's streams")
+    return {"roc_encode": {"max_abs_err": enc_err, "qinco_lists_ms": enc_ms,
+                           "qinco_lists_plain_ms": enc_plain_ms},
+            "roc_decode": {"max_abs_err": dec_err, "qinco_lists_ms": dec_ms,
+                           "qinco_lists_plain_ms": dec_plain_ms,
+                           "qinco_touched_lists": touched.numel(),
+                           "qinco_touched_ms": touched_ms,
+                           "qinco_touched_bound_ms": decode_bound(roc.decoder, touched)[0]}}
 
 
 def time_hnsw_kernels(index, roc, level0, nodes, launches, per_unit, chain):
@@ -1741,8 +2064,11 @@ def main() -> None:
         f"in {time.perf_counter() - t0:.1f} s on the host")
     hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches, hnsw_per_unit = phase_hnsw(
         xt_h, xb, xq, I_bf)
-    del xt_h
     lap("hnsw")
+    qinco_index, qinco_roc, qinco_launches = phase_qinco(args.seed, xt_h, hnsw_index.centroids,
+                                                         xb, xq, I_bf)
+    del xt_h
+    lap("qinco")
     probes = phase_probes(args.seed)
     chain = phase_chain(index, roc)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
@@ -1750,13 +2076,14 @@ def main() -> None:
     per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il, chain)
     per_hnsw = time_hnsw_kernels(hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches,
                                  hnsw_per_unit, chain)
+    per_qinco = time_qinco_kernels(qinco_index, qinco_roc, xq)
     kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes
     lap("probes, chain, timing")
     log(f"[time] host-clock s by phase: {spent}; in all {sum(spent.values()):.1f} s")
     # a kernel that several paths run counts its launches in each, and its
     # error is the largest of its paths'
     by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches,
-                "serialize": ser_launches, "hnsw": hnsw_launches}
+                "serialize": ser_launches, "hnsw": hnsw_launches, "qinco": qinco_launches}
     for entry in kernels[:4]:
         name_ = entry["name"]
         entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items() if name_ in n}
@@ -1765,7 +2092,7 @@ def main() -> None:
         entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
     for entry in kernels[:2]:
         name_ = entry["name"]
-        for extra in (per_node[name_], per_chunk[name_]):
+        for extra in (per_node[name_], per_chunk[name_], per_qinco[name_]):
             entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
     entries = {e["name"]: e for e in kernels}
     entries["roc_decode"]["graph_launches_per_search"] = per_unit["roc_decode"]

@@ -14,6 +14,7 @@ import torch
 
 from vector_db_id_compression_tpu_torch.codecs import roc_device as td
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
+from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
 from vector_db_id_compression_tpu_torch.ops.probes import (
     ProbeChain,
     ProbeDecodeStep,
@@ -161,6 +162,69 @@ def test_roc_ivf_search_on_card(cuda):
     for ln in (0, 17, 63):
         assert torch.equal(roc.get_ids(ln).sort().values.cpu(),
                            torch.from_numpy(np.sort(index.invlists.ids[ln]).view(np.int64)))
+
+
+def test_qinco_on_card(cuda):
+    """QINCo encode and decode on the card against the same weights on the
+    CPU (reconstruction within 1e-4; codes equal except where the first step
+    at which two rows differ is a near tie, the two chosen candidates'
+    distances within 1e-5 relative), and the QINCo IVF search of the same
+    lists on the card against the CPU's under the near-tie rule."""
+    rng = np.random.default_rng(9)
+    xb = (rng.standard_normal((4096, 32)) + 3 * rng.standard_normal((8, 32))[
+        rng.integers(0, 8, 4096)]).astype(np.float32)
+    cpu = QincoCodec(32, 8, ksub=64, hidden=64, device="cpu").train(xb, steps=30)
+    card = QincoCodec(32, 8, ksub=64, hidden=64, device=cuda).load_state_dict(
+        cpu.model.state_dict())
+    codes_cpu, codes_card = cpu.encode(xb), card.encode(xb).cpu()
+    torch.testing.assert_close(card.decode(codes_card).cpu(), cpu.decode(codes_card),
+                               rtol=1e-4, atol=1e-4)
+    rows = torch.nonzero((codes_cpu != codes_card).any(1))[:, 0]
+    assert rows.numel() <= 4096 // 100
+    with torch.no_grad():
+        for r in rows.tolist():
+            m = int(torch.nonzero(codes_cpu[r] != codes_card[r])[0, 0])
+            x_hat = torch.zeros((1, 32))
+            for j in range(m):
+                x_hat = x_hat + cpu.model.steps[j].selected(x_hat, codes_cpu[r:r + 1, j].long())
+            d2 = ((cpu.model.steps[m](x_hat)[0] - (torch.from_numpy(xb[r]) - x_hat)) ** 2).sum(-1)
+            a, b = float(d2[int(codes_cpu[r, m])]), float(d2[int(codes_card[r, m])])
+            assert abs(a - b) <= 1e-5 * max(a, b), f"row {r}: codes differ without a near tie"
+    index_cpu = IndexIVF(32, 16, storage="qinco", qinco=cpu, device="cpu")
+    index_cpu.train(xb, niter=5)
+    index_cpu.add(xb)
+    # the card's index scans the CPU index's lists (its own add could place
+    # a vector otherwise at a near tie)
+    index_card = IndexIVF(32, 16, storage="qinco", qinco=card, device=cuda)
+    index_card.centroids = index_cpu.centroids.to(cuda)
+    index_card.replace_invlists(index_cpu.invlists)
+    xq = xb[:64] + 0.1
+    for nprobe in (4, 16):  # the pair scan, then every bucket dense
+        D0, I0 = index_cpu.search(xq, 10, nprobe=nprobe)
+        D1, I1 = index_card.search(xq, 10, nprobe=nprobe)
+        torch.testing.assert_close(D1.cpu(), D0, rtol=1e-4, atol=1e-3)
+        assert bool(((I1.cpu() == I0) | torch.isclose(D1.cpu(), D0, rtol=1e-4, atol=1e-3)).all())
+
+
+def test_dense_scan_on_card(cuda, monkeypatch):
+    """Full probe on the card (every bucket dense, in slabs of a few lists
+    under a lowered budget) equals the same index's search on the CPU under
+    the near-tie rule."""
+    rng = np.random.default_rng(10)
+    xb = rng.standard_normal((20000, 32)).astype(np.float32)
+    xq = rng.standard_normal((64, 32)).astype(np.float32)
+    cpu = IndexIVF(32, 64, device="cpu")
+    cpu.train(xb, niter=5)
+    cpu.add(xb)
+    card = IndexIVF(32, 64, device=cuda)
+    card.centroids = cpu.centroids.to(cuda)
+    card.add(xb)
+    D0, I0 = cpu.search(xq, 10, nprobe=64)
+    for budget in (ivf.SCAN_BUDGET, 64 * 1024 * 3):
+        monkeypatch.setattr(ivf, "SCAN_BUDGET", budget)
+        D1, I1 = card.search(xq, 10, nprobe=64)
+        torch.testing.assert_close(D1.cpu(), D0, rtol=1e-4, atol=1e-3)
+        assert bool(((I1.cpu() == I0) | torch.isclose(D1.cpu(), D0, rtol=1e-4, atol=1e-3)).all())
 
 
 def test_pq_interleaved_search_on_card(cuda, monkeypatch):

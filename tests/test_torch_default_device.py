@@ -16,6 +16,7 @@ import torch
 from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.search.ivf import save_index
 from vector_db_id_compression_tpu_torch.codecs.roc_interleaved import interleaved_encode
+from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
 from vector_db_id_compression_tpu_torch.search.hnsw import HNSW
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index
 from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
@@ -63,6 +64,11 @@ ENTRY_POINTS = {
     "IndexIVF": lambda s, **kw: IndexIVF(8, 8, **kw).device,
     "IndexIVF-pq": lambda s, **kw: IndexIVF(8, 8, storage="pq", pq_m=2, **kw).pq.device,
     "IndexIVF-hnsw": lambda s, **kw: IndexIVF(8, 8, quantizer="hnsw", **kw).device,
+    "IndexIVF-qinco": lambda s, **kw: IndexIVF(8, 8, storage="qinco",
+                                               qinco=QincoCodec(8, 2, 8, 8, **kw), **kw).device,
+    "QincoCodec": lambda s, **kw: QincoCodec(8, 2, 8, 8, **kw).device,
+    "QincoCodec-train": lambda s, **kw: QincoCodec(8, 2, 8, 8, **kw).train(
+        s.xb, steps=1).encode(s.xb[:5]).device,
     "HNSW": lambda s, **kw: HNSW(M=4, **kw).device,
     "load_hnsw": lambda s, **kw: load_hnsw(s.hnsw_path, s.xb[:50], **kw)._xb.device,
     "load_index": lambda s, **kw: load_index(s.path, **kw).centroids.device,

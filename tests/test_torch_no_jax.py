@@ -11,8 +11,11 @@ both PQ scans, runs the host and native ROC codecs, builds a tiny NSG graph
 and searches it with its five containers, saves and reloads the PQ index, the
 interleaved container (stamped and verified) and a chained ROC graph and
 searches them again, builds and searches a tiny HNSW (dense and ROC level 0,
-saved and reloaded) and an IVF index with the HNSW quantizer, and runs the
-two probes. The JAX package is imported
+saved and reloaded) and an IVF index with the HNSW quantizer, trains a tiny
+QINCo codec into an IVF index with QINCo storage, searches it at full probe
+(the dense scan) with the shortlist's codes, decodes them, saves and reloads
+it, takes REC bits per edge of the NSG graph, and runs the two probes. The
+JAX package is imported
 here only to compare with.
 """
 
@@ -138,6 +141,24 @@ with tempfile.TemporaryDirectory() as tmp:
     save_hnsw(os.path.join(tmp, "h.npz"), h)
     Dh2, Ih2 = load_hnsw(os.path.join(tmp, "h.npz"), xb, device="cpu").search(xq, 5, ef=20)
     assert torch.equal(Ih2, Ih0) and torch.equal(Dh2, Dh0)
+from vector_db_id_compression_tpu_torch.codecs.rec import Graph as RecGraph
+from vector_db_id_compression_tpu_torch.codecs.rec import PolyasUrnModel, friend_to_edgelist_repr
+from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
+
+qi = IndexIVF(8, 4, storage="qinco", qinco=QincoCodec(8, 2, ksub=8, hidden=8, device="cpu"),
+              device="cpu")
+qi.train(xb, niter=3, qinco_steps=5)
+qi.add(xb)
+Dq, Iq, Cq = qi.search_defer_id_decoding(xq, 5, nprobe=4, return_codes=2)
+assert Cq.shape == (12, 5, 1 + 2 + 4) and int(Iq.min()) >= 0
+assert qi.qinco.decode(Cq[:, :, 1:3].reshape(-1, 2)).shape == (60, 8)
+with tempfile.TemporaryDirectory() as tmp:
+    save_index(os.path.join(tmp, "q.npz"), qi)
+    Dq2, Iq2 = load_index(os.path.join(tmp, "q.npz"), device="cpu").search(xq, 5, nprobe=4)
+    assert torch.equal(Iq2, Iq) and torch.equal(Dq2, Dq)
+edges = friend_to_edgelist_repr(g.adjacency)
+assert edges.shape == (int(g.degrees.sum()), 2)
+assert PolyasUrnModel(600, len(edges)).compute_bpe(RecGraph(edges, 600, len(edges)))[1] > 0
 ones = torch.ones((4, 8), dtype=torch.int32)
 assert ProbeGather.run(ones, torch.zeros((4, 1), dtype=torch.int32), steps=5).tolist() == [[5]] * 4
 assert ProbeDecodeStep.run(ones, torch.zeros((1, 8), dtype=torch.int32), steps=6).shape == (6, 8)

@@ -1,9 +1,10 @@
 """The port's artifact format against the JAX package's, on the CPU.
 
 ``store/serialize.py`` (every IVF container kind, both wavelet-tree types,
-every graph kind), ``search/ivf.py`` ``save_index`` and ``utils/integrity.py``
-must write the JAX package's files byte for byte from the same content, and
-each package must load the other's files. For each kind, on lists of a few
+every graph kind), ``search/ivf.py`` ``save_index`` (flat, PQ and QINCo
+storage) and ``utils/integrity.py`` must write the JAX package's files byte
+for byte from the same content, and each package must load the other's
+files. For each kind, on lists of a few
 hundred ids (nlist 16, some lists empty, one of a single id, one long enough
 for several size buckets), on 3 ids, and on none:
   - the port's file is byte-equal to the JAX package's for the same lists;
@@ -25,13 +26,14 @@ ROC) searches exactly as the built pair, and as JAX's loaded index under the
 near-tie rule of ``test_torch_ivf.py``. The checksums equal JAX's.
 """
 
-import json
-
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from test_torch_ivf import assert_same_results
+from vector_db_id_compression_tpu.models.qinco import QincoCodec as JaxQincoCodec
 from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.search.ivf import load_index as jax_load_index
 from vector_db_id_compression_tpu.search.ivf import save_index as jax_save_index
@@ -326,8 +328,8 @@ def test_save_index_matches_jax(tmp_path, make):
 
 def test_save_index_trained_only_and_unported(tmp_path):
     """A trained index without lists saves as JAX's, with the flat or the
-    HNSW quantizer; QINCo storage raises on save and on load, naming what
-    ports it."""
+    HNSW quantizer, and with QINCo storage (its codec's weights in the JAX
+    package's leaf order); each loads back in the other package."""
     rng = np.random.default_rng(4)
     xb = rng.standard_normal((200, 8)).astype(np.float32)
     for quantizer in ("hnsw", "flat"):
@@ -342,19 +344,20 @@ def test_save_index_trained_only_and_unported(tmp_path):
         loaded = load_index(tpath, device="cpu")
         assert loaded.ntotal == 0 and loaded.invlists is None
         assert (loaded.quantizer, loaded.quantizer_efSearch) == (quantizer, 16)
-    for attr, value, what in (("storage", "qinco", "Queue A 5"),):
-        setattr(tidx, attr, value)
-        with pytest.raises(NotImplementedError, match=what):
-            save_index(tmp_path / "x.npz", tidx)
-        setattr(tidx, attr, "flat")
-        with np.load(jpath) as z:
-            arrs = dict(z)
-        meta = json.loads(str(arrs["meta"]))
-        meta[attr] = value
-        arrs["meta"] = np.array(json.dumps(meta))
-        np.savez(tmp_path / "x.npz", **arrs)
-        with pytest.raises(NotImplementedError, match=what):
-            load_index(tmp_path / "x.npz", device="cpu")
+    # QINCo storage, trained only: the codec with JAX's initial weights
+    jc = JaxQincoCodec(8, 3, ksub=16, hidden=8)
+    jc.params = jc.model.init(jax.random.PRNGKey(1), jnp.asarray(xb[:8]))
+    jidx = JaxIndexIVF(8, 4, storage="qinco", qinco=jc)
+    jidx.centroids = xb[:4].copy()
+    jax_save_index(jpath, jidx)
+    loaded = load_index(jpath, device="cpu")
+    assert loaded.ntotal == 0 and loaded.invlists is None and loaded.code_size == 3 + 4
+    codes = rng.integers(0, 16, (10, 3))
+    np.testing.assert_allclose(loaded.qinco.decode(codes).numpy(), jc.decode(codes),
+                               rtol=1e-5, atol=1e-5)
+    save_index(tpath, loaded)
+    assert tpath.read_bytes() == jpath.read_bytes()
+    np.testing.assert_array_equal(jax_load_index(tpath).qinco.decode(codes), jc.decode(codes))
 
 
 # ---------------------------------------------------------------- integrity

@@ -13,7 +13,8 @@ mirrors the JAX package so that each module's counterpart has the same path:
            lane-batched torch ROC codec (per list and chained; the plain
            version of the ROC kernels), interleaved ROC, and the other id
            codecs in plain torch: packed bits, Elias-Fano, the wavelet tree
-           and RRR-compressed bit planes
+           and RRR-compressed bit planes; REC's Pólya-urn bits per edge
+  models/  QINCo, the neural residual quantizer (codec, trainer)
   native/  the threaded C++ host ROC codec and the HNSW build's link loop
            (g++ at first use, ctypes)
   ops/     the hand-written CUDA kernels (``csrc/``): build, binding, wrappers;
@@ -22,10 +23,11 @@ mirrors the JAX package so that each module's counterpart has the same path:
            bits, ROC, Elias-Fano, wavelet tree, interleaved ROC) and the graph
            containers (dense, compact bits, Elias-Fano, per-node ROC,
            chained-block ROC)
-  search/  k-means, the product quantizer, ``IndexIVF`` (flat and PQ
-           storage, flat or HNSW quantizer; grouped or random-access
-           translate), NSG construction, HNSW (build, descent, search) and
-           the host and device best-first graph searches
+  search/  k-means, the product quantizer, ``IndexIVF`` (flat, PQ and
+           QINCo storage, flat or HNSW quantizer; the pair or the dense
+           all-pairs scan; grouped or random-access translate), NSG
+           construction, HNSW (build, descent, search) and the host and
+           device best-first graph searches
   utils/   artifact checksums and profiling helpers
 
 The package imports torch and numpy only; it never imports jax or the JAX
