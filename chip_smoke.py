@@ -20,7 +20,9 @@ coarse quantizer, nprobe = 64), with the ids ROC-compressed per list and the
 quantizer's level-0 graph in the five containers. The QINCo path:
 IVF65536,QINCo16x8 over the same database (a neural residual codec of 16
 one-byte codes per vector), a shortlist of 100 at nprobe 64 with ROC ids,
-re-ranked through the codec's decoder. Phases:
+re-ranked through the codec's decoder. The sharded path: the flat and PQ
+indexes searched through ``parallel/`` on torch.distributed, first as one
+NCCL rank, then as four gloo ranks sharing the card. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc builds the kernels from csrc/ (one process per source)
@@ -77,7 +79,21 @@ re-ranked through the codec's decoder. Phases:
               save, stamp, verify, load and search ms (a loaded graph's
               beside its built graph's, timed in turns), and bits/id (or
               bits/edge) after the round trip
-  9. hnsw     IVF65536_HNSW32,Flat: k-means over 2^21 training vectors of
+  9. parallel one NCCL rank on the card (multihost.initialize, world size
+              1): the sharded ROC encode of main's 1024 lists (bit-equal to
+              the container's states), the sharded decode (every list
+              recovered) and the size psum (the host sum), and ShardedIVF
+              over main's index with the raw lists and each of the six
+              containers and over pq's index with RocInvertedLists (decoded
+              and LUT scans), each equal to the unsharded search under the
+              near-tie rule (D within 1e-5 relative), with the four stages'
+              times; then four gloo ranks sharing the card, each its own
+              process, loading the flat index and its ROC container from
+              files, encoding its quarter of the lists and searching: the
+              gathered states bit-equal to the one rank's, (D, I) the one
+              rank's under the near-tie rule, both kernels launched in every
+              rank; each rank's peak device memory and times
+ 10. hnsw     IVF65536_HNSW32,Flat: k-means over 2^21 training vectors of
               the same mixture (32 per centroid), the HNSW quantizer built
               over the centroids on the card, add through it, search with
               the uncompressed lists and RocInvertedLists, the level-0 graph
@@ -92,7 +108,7 @@ re-ranked through the codec's decoder. Phases:
               search times (the coarse walk with its hops, the scan, the
               translate; the flat quantizer beside), bits/id and bits/edge,
               recall and the probes' overlap with the exact top 64
- 10. qinco    IVF65536,QINCo16x8 (M 16, ksub 256, hidden 256; the paper's
+ 11. qinco    IVF65536,QINCo16x8 (M 16, ksub 256, hidden 256; the paper's
               Table 4 point, cut to the 10^6 database): [hnsw]'s centroids,
               the codec trained on its training vectors' residuals (RQ init,
               300 Adam steps of 256), add (encode), the search with
@@ -107,13 +123,13 @@ re-ranked through the codec's decoder. Phases:
               before; then bits/id, the training, encode, add and search
               times (positional, harvest, translate, re-rank), recall of the
               re-ranked and the linear ranking, the idle share, the file
- 11. probes   the two decode-step probes against their plain versions
- 12. chain    the chain probe (the codec's serial chain, no rank or select
+ 12. probes   the two decode-step probes against their plain versions
+ 13. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
- 13. timing   each kernel beside its plain version at its paths' shapes:
+ 14. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
               entries, at the graph's (per node and chained), at [hnsw]'s
               (its 65,536 lists, its level-0 graph) and at [qinco]'s (its
@@ -135,7 +151,8 @@ decodes or encodes an ROC stream); the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 
-Usage: python3 chip_smoke.py [--seed N]
+Usage: python3 chip_smoke.py [--seed N] (the [parallel] phase starts its four
+ranks as ``chip_smoke.py --parallel-rank R --parallel-dir DIR``)
 """
 
 import argparse
@@ -146,6 +163,7 @@ import sys
 import tempfile
 import time
 import warnings
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -167,6 +185,9 @@ HNSW_NT = 2 ** 21
 # codec is held against the CPU's on QINCO_CHECK vectors
 QINCO_M, QINCO_KSUB, QINCO_HIDDEN, QINCO_STEPS, QINCO_BATCH = 16, 256, 256, 300, 256
 QINCO_NPROBE, QINCO_NSHORT, QINCO_CHECK = 64, 100, 4096
+# [parallel]: gloo ranks sharing the one card (NCCL takes one rank per card),
+# and how long they may take
+PARALLEL_RANKS, PARALLEL_TIMEOUT_S = 4, 600
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores, the table's scalar rate, for the
 # kernels' integer compares
@@ -1123,6 +1144,266 @@ def phase_serialize(ivfs, graphs, medoid, graph_ref, xb, xq):
     return launches
 
 
+def stage_times(sh, xq_d, timer=median_ms) -> dict:
+    """``timer``'s ms (by default CUDA-event medians of 5 after a warm-up) of
+    a ShardedIVF's four stages on one chunk of ``xq_d``, each on the
+    previous stage's output, and of its whole search, at k = K and nprobe =
+    NPROBE. The stages hold collectives: every rank calls this in step."""
+    probes = sh._coarse(xq_d, NPROBE)
+    dist, labels = sh._scan(xq_d, probes, K)
+    _, L = sh._merge(dist, labels, K)
+    return {"coarse": timer(lambda: sh._coarse(xq_d, NPROBE)),
+            "scan": timer(lambda: sh._scan(xq_d, probes, K)),
+            "merge": timer(lambda: sh._merge(dist, labels, K)),
+            "translate": timer(lambda: sh._translate(L)),
+            "search": timer(lambda: sh.search(xq_d, K, NPROBE))}
+
+
+def phase_parallel(index, roc, codecs, pq_index, pq_roc, xq):
+    """``parallel/`` on torch.distributed over the [main] and [pq] indexes.
+    One NCCL rank on the card (multihost.initialize, world size 1): the
+    sharded ROC encode of the 1024 lists (bit-equal to the container's
+    states), the sharded decode (every list recovered), the size psum (the
+    host sum), and ShardedIVF over IVF1024,Flat with the raw lists and every
+    container of AVAILABLE_COMPRESSED_IVFS and over IVF1024,PQ16 with
+    RocInvertedLists through the decoded and the LUT scans, each equal to
+    the unsharded search under the near-tie rule (D within 1e-5 relative);
+    then four gloo ranks on the same card (``parallel_rank``), each loading
+    the flat index and its ROC container from files, encoding its quarter
+    and searching: states bit-equal to the one rank's, I and D under the
+    near-tie rule (the differences in D reported), both kernels launched in
+    every rank.
+    Returns the one rank's launch counts."""
+    import torch.distributed as dist
+
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.parallel import multihost
+    from vector_db_id_compression_tpu_torch.parallel.mesh import (
+        sharded_roc_decode, sharded_roc_encode, sharded_size_accounting)
+    from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
+    from vector_db_id_compression_tpu_torch.search import ivf
+    from vector_db_id_compression_tpu_torch.store.invlists import (
+        AVAILABLE_COMPRESSED_IVFS, roc_lane_table)
+    from vector_db_id_compression_tpu_torch.store.serialize import save_invlists
+
+    cuda = torch.device("cuda", 0)
+    xq_d = torch.from_numpy(xq).to(cuda)
+    flat = {"raw": index.invlists, "roc": roc, **codecs}
+    flat["roc-interleaved"] = AVAILABLE_COMPRESSED_IVFS["roc-interleaved"](index.invlists,
+                                                                          device=cuda)
+    assert sorted(flat) == sorted(["raw", *AVAILABLE_COMPRESSED_IVFS])
+    # the unsharded searches, each with its container's default translate,
+    # and their ms; then the indexes' containers as they were
+    active = index.active, pq_index.active
+    budget = ivf.PQ_DECODE_BUDGET
+    cases = [("flat " + name, index, c, budget) for name, c in flat.items()]
+    cases += [("PQ roc decoded", pq_index, pq_roc, budget), ("PQ roc LUT", pq_index, pq_roc, 0)]
+    ref, ref_ms = {}, {}
+    for name, idx, c, scan_budget in cases:
+        ivf.PQ_DECODE_BUDGET = scan_budget
+        idx.replace_invlists(c)
+        ref[name] = idx.search_defer_id_decoding(xq_d, k=K, nprobe=NPROBE)
+        ref_ms[name] = median_ms(lambda: idx.search_defer_id_decoding(xq_d, k=K, nprobe=NPROBE))
+    ivf.PQ_DECODE_BUDGET = budget
+    index.replace_invlists(active[0])
+    pq_index.replace_invlists(active[1])
+    sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
+    ids_t, lens_t, prec_t = (torch.from_numpy(a).to(cuda)
+                             for a in (sorted_ids.view(np.int64), lengths, prec))
+    built = roc.decoder.states
+    cap = built.stack.shape[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t_init, _ = host_s(lambda: multihost.initialize(
+            init_method=f"file://{tmp / 'pg_init'}", world_size=1, rank=0, device=cuda))
+        try:
+            mesh = multihost.global_lists_mesh(device=cuda)
+            if (mesh.size, mesh.backend) != (1, "nccl"):
+                raise AssertionError(f"not one NCCL rank: {mesh}")
+            # ---- the parallel path on one rank; the kernels' launch counts
+            # are read from this window only
+            RocEncoder.launches = RocDecoder.launches = 0
+            t_enc, (states, order) = host_s(lambda: sharded_roc_encode(mesh, ids_t, lens_t,
+                                                                       prec_t, cap))
+            t_dec, decoded = host_s(lambda: sharded_roc_decode(mesh, states, lens_t, prec_t,
+                                                               sorted_ids.shape[1]))
+            nbytes, nids = sharded_size_accounting(mesh, states, lens_t)
+            sharded, got, build_ms = {}, {}, {}
+            for name, idx, c, scan_budget in cases:
+                ivf.PQ_DECODE_BUDGET = scan_budget
+                try:
+                    build_ms[name], sharded[name] = host_s(lambda: ShardedIVF(
+                        mesh, idx, c, device=cuda))
+                finally:
+                    ivf.PQ_DECODE_BUDGET = budget
+                got[name] = sharded[name].search(xq_d, K, NPROBE)
+            torch.cuda.synchronize()
+            launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+            # ----
+            if [sh._scan_is_float for sh in sharded.values()][-2:] != [True, False]:
+                raise AssertionError("the PQ cases did not take the decoded and the LUT scan")
+            stages = {name: stage_times(sh, xq_d) for name, sh in sharded.items()}
+        finally:
+            dist.destroy_process_group()
+        del sharded
+        if any(not torch.equal(a, b) for a, b in zip(states[:4], built[:4])) or bool(
+                states.err.any()):
+            raise AssertionError("sharded_roc_encode: states differ from RocInvertedLists'")
+        big = torch.iinfo(torch.int64).max
+        valid = torch.arange(ids_t.shape[1], device=cuda)[None, :] < lens_t[:, None]
+        if not torch.equal(torch.where(valid, decoded, big).sort(dim=1).values,
+                           torch.where(valid, ids_t, big)):
+            raise AssertionError("sharded_roc_decode: a list's ids differ from the source")
+        host_bytes = int(np.where(lengths > 0, 8 + 4 * built.stack_len.cpu().numpy(), 0).sum())
+        if (int(nbytes), int(nids)) != (host_bytes, index.ntotal) or \
+                host_bytes != roc.compressed_ids_size_in_bytes:
+            raise AssertionError(f"sharded_size_accounting {int(nbytes)}, {int(nids)} != the "
+                                 f"host's {host_bytes}, {index.ntotal}")
+        differ = {name: assert_near_ties(f"[parallel] one rank, {name}", *got[name], *ref[name],
+                                         1e-5, 1e-5) for name, *_ in cases}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel of the parallel path was not launched: {launches}")
+        log(f"[parallel] one NCCL rank on the card (bring-up {t_init:.2f} s): "
+            f"sharded_roc_encode of {NLIST} lists == the RocInvertedLists states (head, stack, "
+            f"stack_len, mt_ctr; {t_enc * 1e3:.1f} ms host clock), sharded_roc_decode recovers "
+            f"every list ({t_dec * 1e3:.1f} ms), sharded_size_accounting {int(nbytes)} bytes, "
+            f"{int(nids)} ids == the host sum; ShardedIVF == the unsharded search on {NQ} "
+            f"queries, k={K}, nprobe={NPROBE} (near-tie rule, D rtol 1e-5) for every case, "
+            f"labels at near ties {differ}; launches {launches}")
+        for name, *_ in cases:
+            t = stages[name]
+            log(f"[parallel] {name}: build {build_ms[name] * 1e3:.1f} ms (host clock); "
+                f"sharded search {t['search']:.2f} ms = coarse {t['coarse']:.2f} + scan "
+                f"{t['scan']:.2f} + merge {t['merge']:.2f} + translate {t['translate']:.2f} "
+                f"(stages alone); unsharded search {ref_ms[name]:.2f} ms (CUDA-event medians "
+                f"of 5 after a warm-up)")
+
+        # ---- four gloo ranks sharing the card, each its own process
+        from vector_db_id_compression_tpu_torch.search.ivf import save_index
+
+        t_save, _ = host_s(lambda: (save_index(tmp / "index.npz", index),
+                                    save_invlists(tmp / "roc.npz", roc)))
+        np.save(tmp / "xq.npy", xq)
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(PARALLEL_RANKS):
+            out = open(tmp / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
+                 "--parallel-dir", str(tmp)],
+                stdout=out, stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent)),
+                out))
+        try:
+            for p, _ in procs:
+                p.wait(timeout=PARALLEL_TIMEOUT_S)
+        finally:
+            for p, out in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+        wall = time.perf_counter() - t0
+        for r, (p, _) in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"[parallel] rank {r} of {PARALLEL_RANKS} failed "
+                                     f"(rc {p.returncode}):\n"
+                                     + (tmp / f"rank{r}.log").read_text()[-4000:])
+        reports = [json.loads((tmp / f"rank{r}.json").read_text())
+                   for r in range(PARALLEL_RANKS)]
+        z = np.load(tmp / "rank0.npz")
+        for key in ("head", "stack", "stack_len", "mt_ctr"):
+            if not np.array_equal(z[key], getattr(states, key).cpu().numpy()):
+                raise AssertionError(f"four ranks: gathered {key} differs from the one rank's")
+        D4, I4 = torch.from_numpy(z["D"]), torch.from_numpy(z["I"])
+        D1, I1 = (t.cpu() for t in got["flat roc"])
+        # cuBLAS picks its batched matrix-vector kernel by the batch count,
+        # and a rank of four holds a quarter of the (query, list) pairs: the
+        # dot products may round otherwise, by a few ulps of |x|^2 and |y|^2,
+        # which D = |y|^2 - 2 x.y + |x|^2 subtracts; so the near-tie rule
+        # at [main]'s tolerance, and the differences reported
+        differ4 = assert_near_ties("[parallel] four ranks against one", D4, I4, D1, I1, 1e-4,
+                                   1e-3)
+        d_abs = (D4 - D1).abs()
+        d_rel = float((d_abs / D1.abs()).max())
+        for r, rep in enumerate(reports):
+            if min(rep["launches"].values()) < 1:
+                raise AssertionError(f"four ranks: rank {r} launched no kernel: {rep}")
+            if not rep["same_as_rank0"]:
+                raise AssertionError(f"four ranks: rank {r}'s D, I differ from rank 0's")
+    log(f"[parallel] {PARALLEL_RANKS} gloo ranks sharing one card (collectives staged through "
+        f"the host; not a multi-GPU speed): each loaded the flat index and its ROC container "
+        f"(saved in {t_save:.1f} s), encoded its {NLIST // PARALLEL_RANKS} lists and searched "
+        f"{NQ} queries; gathered states == the one rank's, I == the one rank's under the "
+        f"near-tie rule (D rtol 1e-4, atol 1e-3; {differ4} labels at near ties); D differs "
+        f"in {int((d_abs > 0).sum())} of {d_abs.numel()} entries, by {float(d_abs.max()):.6g} "
+        f"at most ({d_rel:.3g} relative); wall {wall:.1f} s for the four processes")
+    for r, rep in enumerate(reports):
+        log(f"[parallel] rank {r}: launches {rep['launches']}, peak device memory "
+            f"{rep['peak_mib']:.0f} MiB, load {rep['load_s']:.2f} s, encode "
+            f"{rep['encode_ms']:.1f} ms, build {rep['build_s']:.2f} s, search "
+            f"{rep['search_ms']:.1f} ms (host clock, median of 3 after a warm-up), in all "
+            f"{rep['wall_s']:.1f} s")
+    return launches
+
+
+def parallel_rank(rank: int, directory: Path) -> None:
+    """One of the ``PARALLEL_RANKS`` gloo ranks of ``phase_parallel`` on
+    cuda:0: loads the flat index and its ROC container from ``directory``
+    onto the host, encodes its quarter of the lists (sharded_roc_encode) and
+    searches the queries (ShardedIVF, its rows on the card); rank 0 writes
+    the gathered states and (D, I), every rank its launches, peak device
+    memory and times."""
+    import torch.distributed as dist
+
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.parallel import multihost
+    from vector_db_id_compression_tpu_torch.parallel.mesh import sharded_roc_encode
+    from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
+    from vector_db_id_compression_tpu_torch.search.ivf import load_index
+    from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+    from vector_db_id_compression_tpu_torch.store.serialize import load_invlists
+
+    cuda = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    multihost.initialize(init_method=f"file://{directory / 'pg4_init'}",
+                         world_size=PARALLEL_RANKS, rank=rank, backend="gloo", device=cuda,
+                         timeout=timedelta(seconds=PARALLEL_TIMEOUT_S))
+    try:
+        mesh = multihost.global_lists_mesh(device=cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        RocEncoder.launches = RocDecoder.launches = 0
+        load_s, (index, roc) = host_s(lambda: (load_index(directory / "index.npz", device="cpu"),
+                                               load_invlists(directory / "roc.npz", device="cpu")))
+        sorted_ids, lengths, prec, _ = roc_lane_table(index.invlists)
+        cap = roc.decoder.states.stack.shape[1]
+        enc_s, (states, _) = host_s(lambda: sharded_roc_encode(
+            mesh, torch.from_numpy(sorted_ids.view(np.int64)), torch.from_numpy(lengths),
+            torch.from_numpy(prec), cap))
+        build_s, sh = host_s(lambda: ShardedIVF(mesh, index, roc, device=cuda))
+        xq = torch.from_numpy(np.load(directory / "xq.npy")).to(cuda)
+        D, I = sh.search(xq, K, NPROBE)
+        launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+        search_ms = float(np.median([host_s(lambda: sh.search(xq, K, NPROBE))[0] * 1e3
+                                     for _ in range(4)][1:]))
+        # every rank holds the same (D, I) after the collectives
+        same = all(torch.equal(g[0], g[r]) for g in (mesh.all_gather(D), mesh.all_gather(I))
+                   for r in range(mesh.size))
+        if rank == 0:
+            np.savez(directory / "rank0.npz", D=D.cpu().numpy(), I=I.cpu().numpy(),
+                     **{k: getattr(states, k).cpu().numpy()
+                        for k in ("head", "stack", "stack_len", "mt_ctr")})
+        report = dict(launches=launches, same_as_rank0=same,
+                      peak_mib=torch.cuda.max_memory_allocated(cuda) / 2 ** 20, load_s=load_s,
+                      encode_ms=enc_s * 1e3, build_s=build_s, search_ms=search_ms,
+                      wall_s=time.perf_counter() - t0)
+        (directory / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_hnsw(xt, xb, xq, I_bf):
     """IVF65536_HNSW32,Flat over the [main] database: train on ``xt``, build
     the HNSW quantizer over the centroids, add through it, search with the
@@ -2019,7 +2300,13 @@ def time_graph_kernels(g, roc, blk, nodes, launches, per_unit, chain, label="gra
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=7)
+    # a rank of [parallel]'s four-rank run, started by that phase
+    parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, args.parallel_dir)
+        return
 
     name = phase_device()
     import vector_db_id_compression_tpu_torch as port
@@ -2056,8 +2343,10 @@ def main() -> None:
          ("PQ", pq_index, {"RocInvertedLists": (pq_roc, (None,)),
                            "interleaved": (pq_il, (None,))})],
         graphs, medoid, graph_ref, xb, xq)
-    del codecs
     lap("serialize")
+    par_launches = phase_parallel(index, roc, codecs, pq_index, pq_roc, xq)
+    del codecs
+    lap("parallel")
     t0 = time.perf_counter()
     xt_h = draw(args.seed, HNSW_NT, args.seed + 4)
     log(f"[hnsw] data: {HNSW_NT} training vectors of the same mixture (seed {args.seed + 4}) "
@@ -2083,7 +2372,8 @@ def main() -> None:
     # a kernel that several paths run counts its launches in each, and its
     # error is the largest of its paths'
     by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches,
-                "serialize": ser_launches, "hnsw": hnsw_launches, "qinco": qinco_launches}
+                "serialize": ser_launches, "parallel": par_launches, "hnsw": hnsw_launches,
+                "qinco": qinco_launches}
     for entry in kernels[:4]:
         name_ = entry["name"]
         entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items() if name_ in n}

@@ -11,6 +11,7 @@ imports jax, so there it runs without the conftest:
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from vector_db_id_compression_tpu_torch.codecs import roc_device as td
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
@@ -23,6 +24,9 @@ from vector_db_id_compression_tpu_torch.ops.probes import (
 )
 from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
 from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+from vector_db_id_compression_tpu_torch.parallel import multihost
+from vector_db_id_compression_tpu_torch.parallel.mesh import sharded_roc_encode
+from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
 from vector_db_id_compression_tpu_torch.search import ivf
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
@@ -39,6 +43,7 @@ from vector_db_id_compression_tpu_torch.store.invlists import (
     InterleavedRocInvertedLists,
     InvertedLists,
     RocInvertedLists,
+    roc_lane_table,
 )
 from vector_db_id_compression_tpu_torch.store.serialize import (
     load_graph,
@@ -162,6 +167,40 @@ def test_roc_ivf_search_on_card(cuda):
     for ln in (0, 17, 63):
         assert torch.equal(roc.get_ids(ln).sort().values.cpu(),
                            torch.from_numpy(np.sort(index.invlists.ids[ln]).view(np.int64)))
+
+
+def test_sharded_search_one_nccl_rank_on_card(cuda, tmp_path):
+    """A size-1 NCCL mesh on the card: ShardedIVF over ROC ids gives the
+    unsharded search's rows (D within 1e-5), through the decode kernel, and
+    the sharded encode gives the container's states."""
+    rng = np.random.default_rng(6)
+    xb = rng.standard_normal((20000, 32)).astype(np.float32)
+    xq = rng.standard_normal((64, 32)).astype(np.float32)
+    index = IndexIVF(32, 64, device=cuda)
+    index.train(xb)
+    index.add(xb)
+    roc = RocInvertedLists(index.invlists, device=cuda)
+    index.replace_invlists(roc)
+    D0, I0 = index.search_defer_id_decoding(xq, 10, nprobe=8)
+    multihost.initialize(init_method=f"file://{tmp_path / 'pg_init'}", world_size=1, rank=0,
+                         device="cuda:0")
+    try:
+        mesh = multihost.global_lists_mesh(device="cuda:0")
+        assert (mesh.size, mesh.backend) == (1, "nccl")
+        before = (RocDecoder.launches, RocEncoder.launches)
+        D1, I1 = ShardedIVF(mesh, index, roc, device=cuda).search(xq, 10, nprobe=8)
+        ids, lengths, prec, _ = roc_lane_table(index.invlists)
+        st, _ = sharded_roc_encode(mesh, torch.from_numpy(ids.view(np.int64)),
+                                   torch.from_numpy(lengths), torch.from_numpy(prec),
+                                   roc.decoder.states.stack.shape[1])
+        torch.cuda.synchronize()
+        assert RocDecoder.launches > before[0] and RocEncoder.launches > before[1]
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(I1.sort(1).values, I0.sort(1).values)
+    torch.testing.assert_close(D1, D0, rtol=1e-5, atol=1e-5)
+    for a, b in zip(st, roc.decoder.states):
+        assert torch.equal(a, b)
 
 
 def test_qinco_on_card(cuda):

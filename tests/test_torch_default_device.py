@@ -17,6 +17,8 @@ from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.search.ivf import save_index
 from vector_db_id_compression_tpu_torch.codecs.roc_interleaved import interleaved_encode
 from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
+from vector_db_id_compression_tpu_torch.parallel.mesh import make_lists_mesh
+from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
 from vector_db_id_compression_tpu_torch.search.hnsw import HNSW
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index
 from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
@@ -74,6 +76,10 @@ ENTRY_POINTS = {
     "load_index": lambda s, **kw: load_index(s.path, **kw).centroids.device,
     "load_invlists": lambda s, **kw: load_invlists(s.il_path, **kw).packed.words.device,
     "load_graph": lambda s, **kw: load_graph(s.graph_path, **kw).words.device,
+    "make_lists_mesh": lambda s, **kw: make_lists_mesh(1, **kw).device,
+    # a mesh on the CPU, and the search's own device
+    "ShardedIVF": lambda s, **kw: ShardedIVF(make_lists_mesh(1, device="cpu"),
+                                             load_index(s.path, device="cpu"), **kw).device,
     "ProductQuantizer": lambda s, **kw: ProductQuantizer(8, 2, **kw).device,
     "train_kmeans": lambda s, **kw: train_kmeans(s.xb, 4, niter=1, **kw).device,
     "RocInvertedLists": lambda s, **kw: RocInvertedLists(s.il, **kw).decoder.device,

@@ -14,7 +14,9 @@ searches them again, builds and searches a tiny HNSW (dense and ROC level 0,
 saved and reloaded) and an IVF index with the HNSW quantizer, trains a tiny
 QINCo codec into an IVF index with QINCo storage, searches it at full probe
 (the dense scan) with the shortlist's codes, decodes them, saves and reloads
-it, takes REC bits per edge of the NSG graph, and runs the two probes. The
+it, takes REC bits per edge of the NSG graph, runs the two probes, and
+searches the ROC-compressed IVF index sharded over a size-1 mesh
+(``parallel/``) with the sharded ROC encode beside it. The
 JAX package is imported
 here only to compare with.
 """
@@ -162,6 +164,20 @@ assert PolyasUrnModel(600, len(edges)).compute_bpe(RecGraph(edges, 600, len(edge
 ones = torch.ones((4, 8), dtype=torch.int32)
 assert ProbeGather.run(ones, torch.zeros((4, 1), dtype=torch.int32), steps=5).tolist() == [[5]] * 4
 assert ProbeDecodeStep.run(ones, torch.zeros((1, 8), dtype=torch.int32), steps=6).shape == (6, 8)
+from vector_db_id_compression_tpu_torch.parallel import multihost
+from vector_db_id_compression_tpu_torch.parallel.mesh import sharded_roc_encode
+from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
+from vector_db_id_compression_tpu_torch.store.invlists import roc_lane_table
+
+multihost.initialize(device="cpu")
+mesh = multihost.global_lists_mesh(device="cpu")
+roc = RocInvertedLists(index.invlists, device="cpu")
+Ds, Is = ShardedIVF(mesh, index, roc, device="cpu").search(xq, 5, nprobe=2)
+assert torch.equal(Is, I1) and torch.allclose(Ds, D1)
+ids_t, lens_t, prec_t, _ = roc_lane_table(index.invlists)
+st, _ = sharded_roc_encode(mesh, torch.from_numpy(ids_t.view(np.int64)), torch.from_numpy(lens_t),
+                           torch.from_numpy(prec_t), roc.decoder.states.stack.shape[1])
+assert torch.equal(st.head, roc.decoder.states.head)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "vector_db_id_compression_tpu"))
 assert not loaded, loaded

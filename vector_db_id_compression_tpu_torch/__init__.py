@@ -28,6 +28,10 @@ mirrors the JAX package so that each module's counterpart has the same path:
            all-pairs scan; grouped or random-access translate), NSG
            construction, HNSW (build, descent, search) and the host and
            device best-first graph searches
+  parallel/ the 'lists' mesh on torch.distributed (NCCL on the cards, gloo
+           for ranks on the CPU or sharing a card): process bring-up, the
+           sharded ROC encode, decode and size psum, a data-parallel QINCo
+           step, and ``ShardedIVF``, the IVF search sharded by lists
   utils/   artifact checksums and profiling helpers
 
 The package imports torch and numpy only; it never imports jax or the JAX

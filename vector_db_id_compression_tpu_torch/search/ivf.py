@@ -290,31 +290,9 @@ class IndexIVF:
         lengths = container.lengths
         dev = self.device
         buckets = bucketize(lengths)
-        pad_rows = sum(len(b.list_ids) * b.n_pad for b in buckets)
-        self._scan_is_float = self.pq is None or pad_rows * self.d <= PQ_DECODE_BUDGET
-        self._scan = []
-        bucket_of = np.full(self.nlist, -1, dtype=np.int64)
-        lane_of = np.zeros(self.nlist, dtype=np.int64)
-        cs = self.code_size
-        for si, bucket in enumerate(buckets):
-            codes = np.zeros((len(bucket.list_ids), bucket.n_pad, cs), np.uint8)
-            for lane, ln in enumerate(bucket.list_ids):
-                rows = container.get_codes(int(ln)).reshape(-1, cs)
-                codes[lane, : len(rows)] = rows
-            bucket_of[bucket.list_ids] = si
-            lane_of[bucket.list_ids] = np.arange(len(bucket.list_ids))
-            if self.storage == "flat":
-                payload = torch.from_numpy(codes.view(np.float32)).to(dev)
-            elif self.storage == "qinco":
-                payload = self._qinco_payload(codes, bucket.list_ids)
-            else:
-                payload = torch.from_numpy(codes).to(dev)
-                payload = (self.pq.decode(payload) if self._scan_is_float
-                           else payload.permute(0, 2, 1).contiguous())
-            self._scan.append(_ScanBucket(
-                lengths=torch.from_numpy(bucket.lengths.astype(np.int64)).to(dev),
-                payload=payload, n_pad=bucket.n_pad,
-                norms=(payload * payload).sum(dim=2) if self._scan_is_float else None))
+        self._scan_is_float = self.decoded_scan(buckets)
+        self._scan, bucket_of, lane_of = self.scan_buckets(container, buckets,
+                                                           self._scan_is_float, dev)
         self._bucket_of = torch.from_numpy(bucket_of).to(dev)
         self._lane_of = torch.from_numpy(lane_of).to(dev)
         # flat tables: entry offsets per list, codes (host) for the harvest,
@@ -329,6 +307,46 @@ class IndexIVF:
         if isinstance(container, InvertedLists):
             self._ids_flat = torch.from_numpy(
                 np.concatenate(container.ids).view(np.int64)).to(dev)
+
+    def decoded_scan(self, buckets) -> bool:
+        """Whether the scan over the size ``buckets`` (``store/ragged.py``)
+        reads float payload: always for flat and QINCo storage; for PQ
+        storage where the buckets' padded rows x d stay within
+        ``PQ_DECODE_BUDGET``."""
+        pad_rows = sum(len(b.list_ids) * b.n_pad for b in buckets)
+        return self.pq is None or pad_rows * self.d <= PQ_DECODE_BUDGET
+
+    def scan_buckets(self, container, buckets, decoded: bool, device):
+        """The scan storage of ``container``'s lists in ``buckets`` (size
+        buckets of list numbers), in its code order, on ``device``: (one
+        ``_ScanBucket`` per bucket, each list's bucket i64[nlist] (-1 for a
+        list in none), its lane in the bucket). ``decoded``: PQ codes as
+        reconstructions (else u8[B, M, n_pad] for the LUT scan)."""
+        scan = []
+        bucket_of = np.full(self.nlist, -1, dtype=np.int64)
+        lane_of = np.zeros(self.nlist, dtype=np.int64)
+        cs = self.code_size
+        for si, bucket in enumerate(buckets):
+            lists = bucket.list_ids
+            codes = np.zeros((len(lists), bucket.n_pad, cs), np.uint8)
+            for lane, ln in enumerate(lists):
+                rows = container.get_codes(int(ln)).reshape(-1, cs)
+                codes[lane, : len(rows)] = rows
+            bucket_of[lists] = si
+            lane_of[lists] = np.arange(len(lists))
+            if self.storage == "flat":
+                payload = torch.from_numpy(codes.view(np.float32)).to(device)
+            elif self.storage == "qinco":
+                payload = self._qinco_payload(codes, lists).to(device)
+            else:
+                payload = torch.from_numpy(codes).to(self.device)
+                payload = (self.pq.decode(payload) if decoded
+                           else payload.permute(0, 2, 1).contiguous()).to(device)
+            scan.append(_ScanBucket(
+                lengths=torch.from_numpy(bucket.lengths.astype(np.int64)).to(device),
+                payload=payload, n_pad=bucket.n_pad,
+                norms=(payload * payload).sum(dim=2) if decoded else None))
+        return scan, bucket_of, lane_of
 
     def _qinco_payload(self, codes: np.ndarray, list_ids: np.ndarray) -> torch.Tensor:
         """The scan payload f32[B, n_pad, d] of a bucket's QINCo entries u8[B,
