@@ -123,13 +123,30 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               before; then bits/id, the training, encode, add and search
               times (positional, harvest, translate, re-rank), recall of the
               re-ranked and the linear ranking, the idle share, the file
- 12. probes   the two decode-step probes against their plain versions
- 13. chain    the chain probe (the codec's serial chain, no rank or select
+ 12. bench    the experiment drivers of bench/ (the JAX package's bench/),
+              each through its main() on the card, outputs in a temporary
+              directory: P1 (bench_invlists, IVF1024,Flat over 10^6 vectors
+              of d 32, the six id methods at nprobe 1, 4, 16) and the codec
+              alone at 10^7 ids in 65,536 lists (codec_scale) and P2
+              (graph_dynamic_bench, NSG R 32 over 10^6, five containers)
+              at the JAX package's recorded runs' sizes; P3 and P4 (graph_static_bench,
+              generate_graph_edgelists), hnsw_bench, P5 (search_ivf_qinco:
+              train, add, search with raw and ROC ids), wt_translate_bench
+              (plain and RRR planes), quantizer_bench, search_100m and
+              scaling (one rank) cut to sizes that fit (BENCH_ARGS). Gates:
+              the drivers' own checks (round trips, oracles, invariance),
+              recall equal across a driver's id containers, 64 bits/id
+              for P1's raw lists and fewer for every id codec, the ROC
+              shortlist and re-rank of P5 equal the uncompressed ones, the
+              ROC kernels launched by every driver that reaches them, and 256 of codec_scale's lanes
+              through both kernels equal to their plain versions
+ 13. probes   the two decode-step probes against their plain versions
+ 14. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
               time of a step of the chain, the floor of a step of both ROC
               kernels
- 14. timing   each kernel beside its plain version at its paths' shapes:
+ 15. timing   each kernel beside its plain version at its paths' shapes:
               both ROC kernels at the IVF shapes, over the PQ index's chunk
               entries, at the graph's (per node and chained), at [hnsw]'s
               (its 65,536 lists, its level-0 graph) and at [qinco]'s (its
@@ -145,7 +162,10 @@ The line before the last is a JSON object with each kernel's launch count
 against the plain version, its time beside the plain version's, its bound
 (``bound_ms``: the larger of the bytes it must move over the H100's 3.35
 TB/s and its operations over the 67 T/s scalar rate, from this run's inputs;
-``bound_by`` says which), for the ROC kernels ``chain_bound_ms`` and
+``bound_by`` says which), for the probes ``latency_bound_ms`` (their
+dependent steps times a step's least latency), for the ROC kernels
+``chain_bound_ms``, ``launches_by_phase`` (``bench``: the experiment
+drivers' launches) and
 ``library_ms`` (null: no single PyTorch call
 decodes or encodes an ROC stream); the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside a checkout of the
@@ -188,11 +208,40 @@ QINCO_NPROBE, QINCO_NSHORT, QINCO_CHECK = 64, 100, 4096
 # [parallel]: gloo ranks sharing the one card (NCCL takes one rank per card),
 # and how long they may take
 PARALLEL_RANKS, PARALLEL_TIMEOUT_S = 4, 600
+# [bench]: the experiment drivers' arguments. P1 and the codec at the JAX
+# package's recorded runs (results/bench_invlists_synthetic1m_tpu.csv: d 32,
+# 10^6 vectors, IVF1024,Flat; results/codec_scale_tpu.jsonl row 1: 10^7 ids in
+# 65,536 lists, JAX_CODEC_SCALE_BITS bits/id); P2 at the 10^6 of
+# results/graph_dynamic_bench_synthetic1m_tpu.csv; P3, P4 and HNSW at the JAX
+# runs' nb = 4000, P5 at results/search_ivf_qinco_synthetic100k_tpu.json's;
+# the rest cut to the phase's budget (their full runs: chip_bench.sh)
+BENCH_SEED = 7  # codec_scale's --seed
+JAX_CODEC_SCALE_BITS = 18.4686
+BENCH_ARGS = {
+    "bench_invlists": ["--synth_scale", "10", "--index", "IVF1024,Flat",
+                       "--nprobe", "1", "4", "16", "--runs", "5"],
+    "codec_scale": ["--ntotal", "10000000", "--nlist", "65536", "--runs", "3"],
+    "codec_scale_sample": (10_000_000, 65536, 512),
+    "graph_dynamic_bench": ["--synth_scale", "10", "--max-degree", "32", "--runs", "3"],
+    "graph_static": ["--synth_scale", "0.04", "--max-degree", "16"],
+    "hnsw_bench": ["--synth_scale", "0.04", "--M", "16"],
+    "search_ivf_qinco": ["--synth_scale", "1", "--nlist", "256", "--M", "8", "--hidden", "128",
+                         "--qinco_steps", "300"],
+    "search_ivf_qinco_search": ["--nprobe", "32", "--nshort", "100", "--k", "100"],
+    "wt_translate_bench": ["--ntotal", "1000000", "--nlist", "8192", "--runs", "3"],
+    "quantizer_bench": ["--nlist", "8192", "--runs", "3"],
+    "search_100m": ["--ntotal", "1000000", "--nlist", "4096", "--runs", "3"],
+    "scaling": ["--devices", "1", "--runs", "3"],
+}
 # the H100 SXM's peaks (NVIDIA's data sheet): HBM bytes/s, and float32
 # operations/s outside the tensor cores, the table's scalar rate, for the
 # kernels' integer compares
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# the latency of one dependent shared-memory load on Hopper, in SM cycles
+# (Luo et al., "Benchmarking and Dissecting the Nvidia Hopper GPU
+# Architecture", 2024): a step of the gather probe (K3) at the least
+SHARED_LOAD_CYCLES = 29
 
 
 def log(msg: str) -> None:
@@ -511,18 +560,36 @@ def chained_batch(seed: int):
             torch.from_numpy(prec))
 
 
-def draw(seed: int, n: int, draw_seed: int):
-    """``n`` vectors of the Gaussian mixture of ``seed`` (as the JAX
-    package's bench/datasets.py SyntheticDataset: 32 centres scaled by 4,
-    unit noise), drawn with ``draw_seed``."""
-    cent = np.random.default_rng(seed).standard_normal((32, D)).astype(np.float32) * 4.0
-    r = np.random.default_rng(draw_seed)
-    return (cent[r.integers(0, 32, n)] + r.standard_normal((n, D))).astype(np.float32)
+# SHA-256 of the arrays this script drew with its own copy of the mixture
+# before it took bench/datasets.py, at seed 7 (train, database, query,
+# [hnsw]'s training set): the port's SyntheticDataset must give them bit for
+# bit, so that every phase's numbers stay comparable with earlier runs
+DATA_SHA256 = {
+    "xt": "8c06ea1cbd41cdc3d8f1548d8707c30ef871d3e2b7768876c32845029f444aff",
+    "xb": "a5216d0c25992c479a517a79a0fe1740d6e37208345431d22696b0691d063ba7",
+    "xq": "c0ba7c1fa3b3fed0924fee77c420c4ffb758146bf23fea5fa0fcd61372997345",
+    "xt_hnsw": "34e8cf3d60183bf11f18e998d74137d9e9f766c1eae6c508b222c1396bbf335d",
+}
 
 
 def make_data(seed: int):
-    """Training, database and query vectors of the mixture of ``seed``."""
-    return draw(seed, NT, seed + 1), draw(seed, NB, seed + 2), draw(seed, NQ, seed + 3)
+    """The port's SyntheticDataset at SIFT1M's shape (the JAX package's
+    mixture: 32 centres scaled by 4, unit noise; training, database and
+    query sets drawn with seed + 1, + 2, + 3) and [hnsw]'s 2^21 training
+    vectors of the same mixture (seed + 4). At seed 7 each array must hash
+    to ``DATA_SHA256``. Returns (xt, xb, xq, xt_hnsw)."""
+    import hashlib
+
+    from vector_db_id_compression_tpu_torch.bench.datasets import SyntheticDataset
+
+    ds = SyntheticDataset(D, NT, NB, NQ, seed=seed, device="cuda")
+    arrays = {"xt": ds.get_train(), "xb": ds.get_database(), "xq": ds.get_queries(),
+              "xt_hnsw": ds.draw(HNSW_NT, seed + 4)}
+    if seed == 7:
+        for name, a in arrays.items():
+            if hashlib.sha256(a.tobytes()).hexdigest() != DATA_SHA256[name]:
+                raise AssertionError(f"SyntheticDataset's {name} is not the array of earlier runs")
+    return tuple(arrays.values())
 
 
 def phase_main(xt, xb, xq):
@@ -1624,27 +1691,6 @@ def phase_hnsw(xt, xb, xq, I_bf):
     return index, roc, containers, Ig[:, 0], launches, per_unit
 
 
-def rerank(index, xq_d, I, codes, k: int):
-    """The JAX package's QINCo bench script's neural re-rank of a shortlist
-    (bench/search_ivf_qinco.py:150-168), on the card: each listno from the
-    codes' coarse prefix (clipped), ``qinco.decode`` of the M code bytes plus
-    the list's centroid, the exact L2 (inf where I < 0), the k smallest.
-    Empty slots decode code 0 instead of 0xff (their distance is inf either
-    way). Returns (the L2 f32[nq, k], the ids i64[nq, k])."""
-    pfx, m = index.coarse_code_size, index.qinco.M
-    flat = codes.reshape(-1, codes.shape[-1]).long()
-    listnos = torch.zeros(flat.shape[0], dtype=torch.int64, device=flat.device)
-    for b in range(pfx):
-        listnos |= flat[:, b] << (8 * b)
-    listnos = listnos.clamp(0, index.nlist - 1)
-    qc = torch.where(I.reshape(-1, 1) >= 0, flat[:, pfx:pfx + m], 0)
-    dec = index.qinco.decode(qc) + index.centroids[listnos]
-    diff = dec.reshape(*I.shape, -1) - xq_d[:, None, :]
-    d2 = torch.where(I >= 0, (diff * diff).sum(dim=2), float("inf"))
-    order = torch.argsort(d2, dim=1)[:, :k]
-    return torch.gather(d2, 1, order), torch.gather(I, 1, order)
-
-
 def qinco_code_ties(codec, x, got, want, tie: float = 1e-5) -> int:
     """Code rows ``got`` and ``want`` u8[n, M] of the vectors ``x`` (CPU
     tensors): equal, or the first step at which a row differs is a near tie
@@ -1682,6 +1728,7 @@ def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
     the card's codec equals the CPU's on QINCO_CHECK vectors, and the index
     saved and loaded searches as before. Returns (the index, its ROC
     container, this phase's launch counts)."""
+    from vector_db_id_compression_tpu_torch.bench.search_ivf_qinco import rerank
     from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
@@ -1892,6 +1939,274 @@ def time_hnsw_kernels(index, roc, level0, nodes, launches, per_unit, chain):
     return out
 
 
+def bench_launches():
+    """The four ROC kernels' launch counts as they stand."""
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+
+    return {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches,
+            "roc_encode_chained": RocEncoder.chained_launches,
+            "roc_decode_chained": RocDecoder.chained_launches}
+
+
+def codec_scale_sample(args, lanes: int = 256, seed: int = 0):
+    """``codec_scale``'s workload and lanes (its own numpy functions) for
+    ``args`` [ntotal, nlist, chunk target]; ``lanes`` of them drawn with
+    ``seed`` encoded by the encode kernel and by its plain version (CPU),
+    then decoded by the decode kernel and by its plain version: states and
+    ids equal, or the run fails. Returns the lanes' count and max length."""
+    from vector_db_id_compression_tpu_torch.bench import codec_scale
+    from vector_db_id_compression_tpu_torch.codecs import roc_device as rd
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+
+    ntotal, nlist, chunk = args
+    ids, lengths, prec = codec_scale.build_workload(ntotal, nlist, BENCH_SEED)
+    ent, ent_len, ent_prec, *_ = codec_scale.build_entries(ids, lengths, prec, "auto", chunk)
+    rows = np.sort(np.random.default_rng(seed).choice(len(ent), lanes, replace=False))
+    n_max = int(ent_len[rows].max())
+    ids_t = torch.from_numpy(codec_scale.padded_entries(ent, rows, n_max))
+    len_t, prec_t = torch.from_numpy(ent_len[rows]), torch.from_numpy(ent_prec[rows])
+    cuda = torch.device("cuda")
+    st_k, order_k = RocEncoder.encode(ids_t.to(cuda), len_t.to(cuda), prec_t.to(cuda))
+    st_p, order_p = RocEncoder.encode(ids_t, len_t, prec_t)
+    for field, got, want in zip(st_k._fields, (*st_k, order_k), (*st_p, order_p)):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"[bench] codec_scale lanes: encode kernel's {field} differs "
+                                 "from the plain version")
+    pool = rd.default_pool(n_max)
+    got = RocDecoder(st_k, len_t.to(cuda), prec_t.to(cuda), pool.to(cuda), n_max).decode()
+    want = RocDecoder(st_p, len_t, prec_t, pool, n_max).decode()
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("[bench] codec_scale lanes: decode kernel's ids differ from the "
+                             "plain version")
+    return lanes, n_max
+
+
+def phase_bench():
+    """The experiment drivers (``vector_db_id_compression_tpu_torch/bench/``),
+    each through its ``main(argv)`` with ``--device cuda``, their outputs in a
+    temporary directory: the P1 IVF bench and the codec at full size (the
+    JAX package's recorded runs, results/*_tpu.*), the rest at the sizes of
+    ``BENCH_ARGS``. Gates: every driver's own checks (round trips, oracles,
+    invariance asserts), recall equal across every id container of a driver,
+    64 bits/id for P1's raw lists and fewer for every id codec, the ROC
+    QINCo shortlist and re-rank equal the uncompressed ones, and the ROC kernels launched by the
+    drivers that reach them; then ``codec_scale``'s lanes held against the
+    plain versions. Returns the drivers' launches by kernel; the numbers
+    are logged."""
+    from vector_db_id_compression_tpu_torch.bench import (
+        bench_invlists, codec_scale, generate_graph_edgelists, graph_dynamic_bench,
+        graph_static_bench, hnsw_bench, quantizer_bench, scaling, search_100m,
+        search_ivf_qinco, wt_translate_bench)
+    from vector_db_id_compression_tpu_torch.bench.datasets import get_dataset
+    from vector_db_id_compression_tpu_torch.bench.search_ivf_qinco import rerank
+    from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
+    from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
+    from vector_db_id_compression_tpu_torch.search.ivf import load_index
+    from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+
+    cuda = torch.device("cuda")
+    spent, found = {}, {}
+
+    def drive(name, module, argv):
+        """``module.main(argv)`` on the card, its host-clock seconds and
+        its launches by kernel."""
+        before = bench_launches()
+        t0 = time.perf_counter()
+        out = module.main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        spent[name] = round(time.perf_counter() - t0, 1)
+        after = bench_launches()
+        return out, {k: after[k] - before[k] for k in after}
+
+    def equal_recall(what, rows, key="nprobe"):
+        by = {}
+        for r in rows:
+            by.setdefault(r.get(key), set()).add(r["recall_1"])
+        if any(len(v) != 1 for v in by.values()):
+            raise AssertionError(f"[bench] {what}: recall_1 differs between id containers: {by}")
+        return {k: v.pop() for k, v in by.items()}
+
+    def need(what, got, kernels):
+        if min(got[k] for k in kernels) < 1:
+            raise AssertionError(f"[bench] {what}: a kernel of its path was not launched: {got}")
+
+    RocEncoder.launches = RocEncoder.chained_launches = 0
+    RocDecoder.launches = RocDecoder.chained_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- P1 at the JAX run's size
+        rows, got = drive("bench_invlists", bench_invlists, [
+            "--dataset", "synthetic", *BENCH_ARGS["bench_invlists"],
+            "--out", str(tmp / "ivf.csv")])
+        need("bench_invlists", got, ["roc_encode", "roc_decode"])
+        recall = equal_recall("bench_invlists", rows)
+        for r in rows:
+            # the raw lists hold 64 bits an id, every id codec fewer
+            if (r["bits_per_id"] == 64.0) != (r["method"] == "ref"):
+                raise AssertionError(f"[bench] bench_invlists {r['method']}: "
+                                     f"{r['bits_per_id']} bits/id")
+        found["bench_invlists"] = {"recall_1": recall, "launches": got, "rows": [
+            {k: r[k] for k in ("method", "nprobe", "dt_search", "bits_per_id", "ids_size",
+                               "overhead_size", "build_time")} for r in rows]}
+        log(f"[bench] bench_invlists IVF1024,Flat over 10^6 (d 32), 6 methods: recall@1 "
+            f"{recall} equal across them; launches {got}")
+        for r in rows:
+            log(f"[bench]   {r['method']:15s} nprobe {r['nprobe']:3d}: {r['dt_search'] * 1e3:.3f} "
+                f"ms (median of {r['runs']}), {r['bits_per_id']:.4f} bits/id, overhead "
+                f"{r['overhead_size']} B, build {r['build_time']:.3f} s")
+
+        # ---- the codec alone at 10M ids in 65,536 lists
+        row, got = drive("codec_scale", codec_scale, BENCH_ARGS["codec_scale"])
+        need("codec_scale", got, ["roc_encode", "roc_decode"])
+        found["codec_scale"] = {**row, "launches": got}
+        log(f"[bench] codec_scale {row['ntotal']} ids, {row['nlist']} lists, {row['lanes']} "
+            f"lanes (n_max {row['lane_n_max']}): every lane round-trips; {row['bits_per_id']} "
+            f"bits/id (the JAX package's recorded run: {JAX_CODEC_SCALE_BITS}, "
+            f"{'equal' if row['bits_per_id'] == JAX_CODEC_SCALE_BITS else 'DIFFERENT'}); "
+            f"decode {row['decode_mids_s']} Mids/s (one-shot with the ids' transfer "
+            f"{row['decode_oneshot_mids_s']}), encode {row['encode_mids_s']} Mids/s, host "
+            f"build {row['host_encode_s']} s; launches {got}")
+
+        # ---- P2: NSG R = 32, the five adjacency containers
+        rows, got = drive("graph_dynamic_bench", graph_dynamic_bench, [
+            *BENCH_ARGS["graph_dynamic_bench"], "--out", str(tmp / "g.csv")])
+        need("graph_dynamic_bench", got, list(got))
+        recall = equal_recall("graph_dynamic_bench", rows, key="max_degree")
+        found["graph_dynamic_bench"] = {"recall_1": recall, "launches": got, "rows": [
+            {k: r[k] for k in ("method", "dt_search", "dt_search_sustained", "bits_per_edge",
+                               "build_time")} for r in rows]}
+        log(f"[bench] graph_dynamic_bench NSG32 ({BENCH_ARGS['graph_dynamic_bench']}): recall@1 "
+            f"{recall} equal across the five containers; launches {got}")
+        for r in rows:
+            log(f"[bench]   {r['method']:10s}: {r['dt_search'] * 1e3:.3f} ms (sustained "
+                f"{r['dt_search_sustained'] * 1e3:.3f}), {r['bits_per_edge']:.4f} bits/edge")
+
+        # ---- P3 and P4 at the JAX runs' nb = 4000, R = 16
+        rows, _ = drive("graph_static_bench", graph_static_bench, [
+            *BENCH_ARGS["graph_static"], "--out", str(tmp / "s.csv")])
+        drive("generate_graph_edgelists", generate_graph_edgelists, [
+            *BENCH_ARGS["graph_static"], "--outdir", str(tmp / "el")])
+        rec = {r["index_str"]: r for r in rows if r["comp_method"] == "rec"}
+        for index_str, r in rec.items():
+            el = tmp / "el" / f"SyntheticDataset_{index_str.replace(',', '_')}.el"
+            n_lines = len(el.read_text().splitlines())
+            if n_lines != r["num_edges"] or not 0 < r["bpe"] < 64:
+                raise AssertionError(f"[bench] {index_str}: {n_lines} edge lines, "
+                                     f"{r['num_edges']} edges, {r['bpe']} bits/edge")
+        found["graph_static_bench"] = [
+            {k: r[k] for k in ("index_str", "comp_method", "bpe", "num_edges")} for r in rows]
+        log("[bench] graph_static_bench, generate_graph_edgelists: " + "; ".join(
+            f"{r['index_str']} {r['comp_method']} {r['bpe']:.4f}" for r in rows)
+            + " bits/edge; the .el files hold every edge")
+
+        # ---- HNSW level 0 in the five containers
+        rows, got = drive("hnsw_bench", hnsw_bench, [*BENCH_ARGS["hnsw_bench"],
+                                                     "--out", str(tmp / "h.csv")])
+        need("hnsw_bench", got, list(got))
+        recall = equal_recall("hnsw_bench", rows, key="M")
+        found["hnsw_bench"] = {"recall_1": recall, "launches": got, "rows": [
+            {k: r[k] for k in ("method", "dt_search", "bits_per_edge")} for r in rows]}
+        log(f"[bench] hnsw_bench: recall@1 {recall} equal across the five containers; " + "; ".join(
+            f"{r['method']} {r['dt_search'] * 1e3:.3f} ms {r['bits_per_edge']:.4f} bits/edge"
+            for r in rows) + f"; launches {got}")
+
+        # ---- P5: train and add once, search with raw and ROC ids
+        work = tmp / "qinco"
+        q_args = [*BENCH_ARGS["search_ivf_qinco"], "--workdir", str(work)]
+        _, got_train = drive("search_ivf_qinco train add", search_ivf_qinco,
+                             [*q_args, "--todo", "train", "add"])
+        out, got = {}, {}
+        for comp in ("none", "roc"):
+            out[comp], got[comp] = drive(f"search_ivf_qinco search {comp}", search_ivf_qinco, [
+                *q_args, "--todo", "search", "--id_compression", comp, "--defer_id_decoding",
+                *BENCH_ARGS["search_ivf_qinco_search"]])
+        need("search_ivf_qinco roc", got["roc"], ["roc_encode", "roc_decode"])
+        recalls = {c: o["sweep"][0]["recalls"] for c, o in out.items()}
+        # the shortlist itself, through the driver's index, under [qinco]'s
+        # rule: the same ids and codes (ROC reorders entries of equal codes,
+        # which tie exactly), the re-rank equal but at near ties
+        index = load_index(work / "qinco_index.npz", device=cuda)
+        xq_d = torch.from_numpy(get_dataset("synthetic", synth_scale=1.0,
+                                            device=cuda).get_queries()).to(cuda)
+        nprobe, nshort, k = 32, 100, 100
+        D0, I0, C0 = index.search_defer_id_decoding(xq_d, nshort, nprobe=nprobe,
+                                                    return_codes=2)
+        index.replace_invlists(RocInvertedLists(index.invlists, device=cuda))
+        D1, I1, C1 = index.search_defer_id_decoding(xq_d, nshort, nprobe=nprobe,
+                                                    decode_1by1=False, return_codes=2)
+        o0, o1 = I0.argsort(dim=1), I1.argsort(dim=1)
+        rows_ = torch.arange(I0.shape[0], device=cuda)[:, None]
+        if not (torch.equal(I0.gather(1, o0), I1.gather(1, o1))
+                and torch.equal(C0[rows_, o0], C1[rows_, o1])):
+            raise AssertionError("[bench] search_ivf_qinco: the ROC shortlist (ids or codes) "
+                                 "differs from the uncompressed one")
+        torch.testing.assert_close(D1, D0, rtol=1e-4, atol=1e-3)
+        ties = assert_near_ties("[bench] search_ivf_qinco re-rank", *rerank(index, xq_d, I1, C1, k),
+                                *rerank(index, xq_d, I0, C0, k), 1e-6, 1e-6)
+        del index
+        found["search_ivf_qinco"] = {
+            c: {k_: o[k_] for k_ in ("bits_per_id", "comp_time", "ids_size")}
+            | {"sweep": o["sweep"], "launches": got[c]} for c, o in out.items()}
+        found["search_ivf_qinco"]["train_add_launches"] = got_train
+        log(f"[bench] search_ivf_qinco (nlist 256, M 8, hidden 128, 300 steps; nprobe 32, "
+            f"nshort 100, k 100): recalls {recalls}; the ROC shortlist (ids, codes) == "
+            f"uncompressed, its re-rank too ({ties} labels at near ties); " + "; ".join(
+                f"{c}: search {o['sweep'][0]['t_search'] * 1e3:.3f} ms, re-rank "
+                f"{o['sweep'][0]['t_rerank'] * 1e3:.3f} ms, {o['bits_per_id']:.4f} bits/id"
+                for c, o in out.items()) + f"; launches {got}")
+
+        # ---- the wavelet-tree translate, plain and RRR planes
+        found["wt_translate_bench"] = []
+        for wt_type in ("0", "1"):
+            row, _ = drive(f"wt_translate_bench {wt_type}", wt_translate_bench,
+                           [*BENCH_ARGS["wt_translate_bench"], "--wt-type", wt_type])
+            found["wt_translate_bench"].append(row)
+            log(f"[bench] wt_translate_bench wt_type {wt_type}: Q {row['Q']}, {row['levels']} "
+                f"levels, oracle holds; e2e {row['e2e_ms']} ms, select on the card "
+                f"{row['select_chip_ms']} ms, floor {row['floor_ms']} ms")
+
+        # ---- the coarse quantizers
+        row, _ = drive("quantizer_bench", quantizer_bench, [
+            *BENCH_ARGS["quantizer_bench"], "--out", str(tmp / "quantizer.json")])
+        found["quantizer_bench"] = row
+        log(f"[bench] quantizer_bench nlist {row['nlist']}: HNSW build {row['hnsw_build_s']} s, "
+            f"flat {row['flat_ms']} ms; " + "; ".join(
+                f"ef {h['ef']} {h['ms']} ms overlap {h['probe_overlap']} top-1 "
+                f"{h['top1_agree']}" for h in row["hnsw"]))
+
+        # ---- the 100M driver, cut
+        rows, got = drive("search_100m", search_100m, [
+            *BENCH_ARGS["search_100m"], "--out", str(tmp / "s100m.json")])
+        need("search_100m", got, ["roc_encode", "roc_decode"])
+        recall = equal_recall("search_100m", rows)
+        found["search_100m"] = {"recall_1": recall, "launches": got, "rows": [
+            {k: r[k] for k in ("method", "nprobe", "t_search", "t_search_min", "bits_per_id")}
+            for r in rows]}
+        log(f"[bench] search_100m ({BENCH_ARGS['search_100m']}, the LUT byte scan): recall@1 "
+            f"{recall} equal across containers; " + "; ".join(
+                f"{r['method']} nprobe {r['nprobe']} {r['t_search'] * 1e3:.3f} ms "
+                f"{r['bits_per_id']:.4f} bits/id" for r in rows) + f"; launches {got}")
+
+        # ---- weak scaling on one rank: the codec, and the sharded search
+        codec, got = drive("scaling", scaling, BENCH_ARGS["scaling"])
+        need("scaling", got, ["roc_encode", "roc_decode"])
+        search, _ = drive("scaling --search", scaling,
+                          [*BENCH_ARGS["scaling"], "--search", "--phases"])
+        found["scaling"] = {"codec": codec["rows"], "search": search["rows"], "launches": got}
+        log(f"[bench] scaling, one rank: {codec['rows']}; search {search['rows']}")
+
+    launches = bench_launches()
+    n_lanes, n_max = codec_scale_sample(BENCH_ARGS["codec_scale_sample"])
+    log(f"[bench] codec_scale: {n_lanes} of its lanes (n_max {n_max}) through both kernels "
+        f"== their plain versions (states, order, ids)")
+    found["spent_s"] = spent
+    log(f"[bench] host-clock s by driver: {spent}; in all {sum(spent.values()):.1f} s")
+    log(f"[bench] numbers: {json.dumps(found)}")
+    return launches
+
+
 def phase_probes(seed: int):
     """K3 and K4 on the card against their plain versions, on the inputs the
     probe files draw (seeded here). Returns the two kernels' JSON entries."""
@@ -1980,6 +2295,30 @@ def phase_chain(index, roc):
         f"(CUDA-event medians of 5 after a warm-up, launch and staging included); "
         f"== the codec's streams and the plain version, max_abs_err 0")
     return dec_us, enc_us
+
+
+def probe_latency_bounds(entries, chain) -> None:
+    """Each probe's latency bound (``latency_bound_ms``): its STEPS
+    dependent steps times the least time of one step. A step of K3 waits at
+    least for one dependent shared-memory load (SHARED_LOAD_CYCLES at the
+    card's maximum SM clock, from nvidia-smi); a step of K4 is a decode step
+    of the chain, whose floor is the chain probe's decode step (``chain``,
+    [chain]). The bytes-and-operations bound (``bound_ms``) is far below
+    either: a chain of dependent steps is bound by their latency."""
+    from vector_db_id_compression_tpu_torch.ops.probes import STEPS
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    step_ms = {"probe_gather": SHARED_LOAD_CYCLES / (mhz * 1e3),
+               "probe_decode_step": chain[0] * 1e-3}
+    for e in entries:
+        e["latency_bound_ms"] = STEPS * step_ms[e["name"]]
+        log(f"[probes] {e['name']}: latency bound {STEPS} steps x "
+            f"{step_ms[e['name']] * 1e6:.2f} ns = {e['latency_bound_ms']:.4f} ms "
+            + (f"({SHARED_LOAD_CYCLES} cycles at the {mhz:.0f} MHz maximum SM clock)"
+               if e["name"] == "probe_gather" else "(the chain probe's decode step)")
+            + f"; the kernel takes {e['ms'] / e['latency_bound_ms']:.2f}x it")
 
 
 def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
@@ -2324,9 +2663,11 @@ def main() -> None:
     phase_kernels(args.seed)
     lap("build, kernels")
     t0 = time.perf_counter()
-    xt, xb, xq = make_data(args.seed)
-    log(f"[main] data: {NT} train, {NB} database, {NQ} query vectors of d={D} "
-        f"(seed {args.seed}) in {time.perf_counter() - t0:.1f} s on the host")
+    xt, xb, xq, xt_h = make_data(args.seed)
+    log(f"[main] data (bench/datasets.py SyntheticDataset): {NT} train, {NB} database, {NQ} "
+        f"query vectors of d={D}, and [hnsw]'s {HNSW_NT} training vectors (seed {args.seed}), "
+        f"in {time.perf_counter() - t0:.1f} s on the host"
+        + ("; each array == the earlier runs' (SHA-256)" if args.seed == 7 else ""))
     index, roc, main_launches, I_bf = phase_main(xt, xb, xq)
     lap("main")
     codecs = phase_codecs(index, roc, xq)
@@ -2347,10 +2688,6 @@ def main() -> None:
     par_launches = phase_parallel(index, roc, codecs, pq_index, pq_roc, xq)
     del codecs
     lap("parallel")
-    t0 = time.perf_counter()
-    xt_h = draw(args.seed, HNSW_NT, args.seed + 4)
-    log(f"[hnsw] data: {HNSW_NT} training vectors of the same mixture (seed {args.seed + 4}) "
-        f"in {time.perf_counter() - t0:.1f} s on the host")
     hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches, hnsw_per_unit = phase_hnsw(
         xt_h, xb, xq, I_bf)
     lap("hnsw")
@@ -2358,8 +2695,11 @@ def main() -> None:
                                                          xb, xq, I_bf)
     del xt_h
     lap("qinco")
+    bench_launches_ = phase_bench()
+    lap("bench")
     probes = phase_probes(args.seed)
     chain = phase_chain(index, roc)
+    probe_latency_bounds(probes, chain)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
                                            chain)
     per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il, chain)
@@ -2373,7 +2713,7 @@ def main() -> None:
     # error is the largest of its paths'
     by_phase = {"main": main_launches, "pq": pq_launches, "graph": graph_launches,
                 "serialize": ser_launches, "parallel": par_launches, "hnsw": hnsw_launches,
-                "qinco": qinco_launches}
+                "qinco": qinco_launches, "bench": bench_launches_}
     for entry in kernels[:4]:
         name_ = entry["name"]
         entry["launches_by_phase"] = {ph: n[name_] for ph, n in by_phase.items() if name_ in n}

@@ -604,3 +604,23 @@ def test_saved_and_loaded_on_card(cuda, tmp_path):
         assert torch.equal(got, want)
     torch.cuda.synchronize()
     assert RocDecoder.chained_launches > before
+
+
+def test_bench_drivers_on_card(cuda, tmp_path):
+    """Two experiment drivers at a tiny size on the card, each through its
+    command line with its default device: P1 over every id method (the ROC
+    rows launch both kernels) and the codec alone (every lane round-trips
+    through the decode kernel, the encode kernel's streams equal the native
+    host codec's)."""
+    from vector_db_id_compression_tpu_torch.bench import bench_invlists, codec_scale
+
+    enc, dec = RocEncoder.launches, RocDecoder.launches
+    rows = bench_invlists.main(["--synth_scale", "0.02", "--index", "IVF16,Flat", "--runs", "1",
+                                "--nprobe", "1", "4", "--out", str(tmp_path / "ivf.csv")])
+    assert len(rows) == 12 and len({(r["nprobe"], r["recall_1"]) for r in rows}) == 2
+    assert RocEncoder.launches > enc and RocDecoder.launches > dec
+    enc, dec = RocEncoder.launches, RocDecoder.launches
+    row = codec_scale.main(["--ntotal", "30000", "--nlist", "16", "--runs", "1",
+                            "--chunk-target", "256"])
+    assert row["lanes"] > 16 and row["decode_mids_s"] > 0 and row["encode_mids_s"] > 0
+    assert RocEncoder.launches > enc and RocDecoder.launches > dec

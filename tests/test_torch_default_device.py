@@ -7,6 +7,7 @@ tensor's own device. The tests that need a machine without a card skip on
 one with a card.
 """
 
+import importlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -15,6 +16,8 @@ import torch
 
 from vector_db_id_compression_tpu.search.ivf import IndexIVF as JaxIndexIVF
 from vector_db_id_compression_tpu.search.ivf import save_index
+from vector_db_id_compression_tpu_torch import bench
+from vector_db_id_compression_tpu_torch.bench.datasets import SyntheticDataset
 from vector_db_id_compression_tpu_torch.codecs.roc_interleaved import interleaved_encode
 from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
 from vector_db_id_compression_tpu_torch.parallel.mesh import make_lists_mesh
@@ -81,6 +84,7 @@ ENTRY_POINTS = {
     "ShardedIVF": lambda s, **kw: ShardedIVF(make_lists_mesh(1, device="cpu"),
                                              load_index(s.path, device="cpu"), **kw).device,
     "ProductQuantizer": lambda s, **kw: ProductQuantizer(8, 2, **kw).device,
+    "SyntheticDataset": lambda s, **kw: SyntheticDataset(4, 10, 20, 3, **kw).device,
     "train_kmeans": lambda s, **kw: train_kmeans(s.xb, 4, niter=1, **kw).device,
     "RocInvertedLists": lambda s, **kw: RocInvertedLists(s.il, **kw).decoder.device,
     "InterleavedRocInvertedLists":
@@ -120,3 +124,50 @@ def test_graph_entry_points_keep_a_tensors_device(small):
     assert build_nsg(xb, R=8)[0].device == xb.device
     assert build_knn_graph(xb, 4).device == xb.device
     assert Graph(torch.full((4, 3), -1, dtype=torch.int32)).device == xb.device
+
+
+# each experiment driver's command line at a tiny size (``OUT`` stands for a
+# file or directory under the test's tmp_path)
+DRIVERS = {
+    "bench_invlists": ["--synth_scale", "0.01", "--index", "IVF4,Flat", "--runs", "1",
+                       "--nprobe", "1", "--methods", "ref", "roc", "--out", "OUT"],
+    "graph_dynamic_bench": ["--synth_scale", "0.01", "--max-degree", "4", "--runs", "1",
+                            "--k", "2", "--methods", "ref", "--out", "OUT"],
+    "graph_static_bench": ["--synth_scale", "0.01", "--max-degree", "4", "--out", "OUT"],
+    "generate_graph_edgelists": ["--synth_scale", "0.01", "--max-degree", "4", "--outdir", "OUT"],
+    "hnsw_bench": ["--synth_scale", "0.01", "--M", "4", "--runs", "1", "--methods", "ref",
+                   "--out", "OUT"],
+    "search_ivf_qinco": ["--synth_scale", "0.01", "--nlist", "4", "--M", "2", "--ksub", "8",
+                         "--hidden", "8", "--qinco_steps", "2", "--runs", "1", "--nprobe", "2",
+                         "--nshort", "5", "--k", "2", "--workdir", "OUT"],
+    "codec_scale": ["--ntotal", "500", "--nlist", "4", "--runs", "1"],
+    "wt_translate_bench": ["--ntotal", "500", "--nlist", "4", "--nq", "4", "--nshort", "4",
+                           "--runs", "1"],
+    "quantizer_bench": ["--nlist", "64", "--nq", "5", "--runs", "1", "--ef", "16",
+                        "--out", "OUT"],
+    "search_100m": ["--ntotal", "2000", "--nlist", "8", "--nq", "5", "--M", "4", "--runs", "1",
+                    "--nprobe", "2", "--out", "OUT"],
+    "scaling": ["--devices", "1", "--runs", "1", "--lists-per-device", "4",
+                "--ids-per-list", "10"],
+}
+
+
+def _driver(name, tmp_path):
+    module = importlib.import_module(f"{bench.__name__}.{name}")
+    return module.main, [str(tmp_path / "out") if a == "OUT" else a for a in DRIVERS[name]]
+
+
+@pytest.mark.parametrize("name", sorted(DRIVERS))
+def test_driver_without_device_raises_without_card(tmp_path, name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is available")
+    main, argv = _driver(name, tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+
+
+@pytest.mark.parametrize("name", sorted(DRIVERS))
+def test_driver_runs_on_the_cpu_when_asked(tmp_path, name):
+    main, argv = _driver(name, tmp_path)
+    main([*argv, "--device", "cpu"])
+    assert not torch.cuda.is_initialized()

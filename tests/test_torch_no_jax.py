@@ -16,7 +16,8 @@ QINCo codec into an IVF index with QINCo storage, searches it at full probe
 (the dense scan) with the shortlist's codes, decodes them, saves and reloads
 it, takes REC bits per edge of the NSG graph, runs the two probes, and
 searches the ROC-compressed IVF index sharded over a size-1 mesh
-(``parallel/``) with the sharded ROC encode beside it. The
+(``parallel/``) with the sharded ROC encode beside it, and runs the P1
+experiment driver (``bench/bench_invlists.py``) at a tiny size. The
 JAX package is imported
 here only to compare with.
 """
@@ -178,6 +179,13 @@ ids_t, lens_t, prec_t, _ = roc_lane_table(index.invlists)
 st, _ = sharded_roc_encode(mesh, torch.from_numpy(ids_t.view(np.int64)), torch.from_numpy(lens_t),
                            torch.from_numpy(prec_t), roc.decoder.states.stack.shape[1])
 assert torch.equal(st.head, roc.decoder.states.head)
+import contextlib, io
+from vector_db_id_compression_tpu_torch.bench import bench_invlists
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    rows = bench_invlists.main(["--synth_scale", "0.01", "--index", "IVF4,Flat", "--runs", "1",
+                                "--nprobe", "2", "--methods", "ref", "roc", "--device", "cpu",
+                                "--out", os.path.join(tmp, "ivf.csv")])
+assert len(rows) == 2 and rows[0]["recall_1"] == rows[1]["recall_1"]
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "vector_db_id_compression_tpu"))
 assert not loaded, loaded

@@ -230,6 +230,46 @@ def test_initialize_is_a_noop_without_configuration(monkeypatch):
         multihost.initialize(device="cpu")
 
 
+@pytest.mark.parametrize("world,backend", [(2, "nccl"), (4, "gloo")])
+def test_initialize_takes_gloo_for_ranks_that_share_a_card(monkeypatch, world, backend):
+    """On a host of two cards, a world of two ranks gets NCCL and a world of
+    four (two ranks a card, which NCCL refuses) gloo."""
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    monkeypatch.setattr(multihost, "rank_device", lambda dev: torch.device("cuda", 1))
+    monkeypatch.setattr(dist, "init_process_group", lambda b, **kw: seen.update(backend=b))
+    multihost.initialize("tcp://localhost:1", world_size=world, rank=world - 1, device="cuda")
+    assert seen["backend"] == backend
+
+
+def test_rank_device_shares_the_cards_beyond_their_count(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(pmesh, "resolve", lambda dev: dev)
+    for local, card in ((0, 0), (1, 1), (3, 1), (4, 0)):
+        monkeypatch.setenv("LOCAL_RANK", str(local))
+        assert pmesh.rank_device("cuda") == torch.device("cuda", card)
+    assert pmesh.rank_device("cuda:0") == torch.device("cuda", 0)
+    assert pmesh.rank_device("cpu") == torch.device("cpu")
+
+
+def test_make_lists_mesh_over_a_sub_group(tmp_path):
+    """A mesh over a sub-group (``dist.new_group``) takes the group's rank,
+    size and backend, and its collectives run over the group."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", world_size=1,
+                            rank=0)
+    try:
+        group = dist.new_group([0])
+        mesh = pmesh.make_lists_mesh(1, device="cpu", group=group)
+        assert (mesh.rank, mesh.size, mesh.group, mesh.backend) == (0, 1, group, "gloo")
+        t = torch.arange(6).reshape(2, 3)
+        assert torch.equal(mesh.all_gather(t), t[None]) and torch.equal(mesh.psum(t), t)
+        with pytest.raises(ValueError, match="process group"):
+            pmesh.make_lists_mesh(2, device="cpu", group=group)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_process_shard_bounds_cover_exactly():
     assert multihost.process_shard_bounds(100) == (0, 100)
     arr = np.arange(10)

@@ -33,6 +33,9 @@ mirrors the JAX package so that each module's counterpart has the same path:
            sharded ROC encode, decode and size psum, a data-parallel QINCo
            step, and ``ShardedIVF``, the IVF search sharded by lists
   utils/   artifact checksums and profiling helpers
+  bench/   the experiment drivers (datasets, the paper's P1-P5, HNSW,
+           codec scale, wavelet-tree translate, coarse quantizer, 100M ids,
+           weak scaling): ``python -m vector_db_id_compression_tpu_torch.bench.<driver>``
 
 The package imports torch and numpy only; it never imports jax or the JAX
 package. The CUDA kernels are compiled with ``nvcc`` at first use

@@ -38,12 +38,14 @@ from ..ops.roc_encode import RocEncoder
 
 
 def rank_device(device=DEFAULT_DEVICE) -> torch.device:
-    """``device`` for this rank: a bare ``"cuda"`` means the card of
-    ``LOCAL_RANK`` (torchrun's, 0 without it); any other device as given.
-    Raises where the device is not available (``device.resolve``)."""
+    """``device`` for this rank: a bare ``"cuda"`` means card ``LOCAL_RANK``
+    (torchrun's, 0 without it) modulo the cards present, so that ranks
+    beyond the cards share them; any other device as given. Raises where
+    the device is not available (``device.resolve``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        cards = max(torch.cuda.device_count(), 1)
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % cards)
     return resolve(dev)
 
 
@@ -89,13 +91,21 @@ class ListsMesh:
         return self.rank * per, (self.rank + 1) * per
 
 
-def make_lists_mesh(n_devices: Optional[int] = None, device=DEFAULT_DEVICE) -> ListsMesh:
-    """The mesh over every rank of the default process group
-    (``multihost.initialize``), or the size-1 mesh without one. ``device``:
-    the rank's device (``rank_device``); ``n_devices``, where given, must be
-    the group's size (1 without a group)."""
+def make_lists_mesh(n_devices: Optional[int] = None, device=DEFAULT_DEVICE,
+                    group: Optional[dist.ProcessGroup] = None) -> ListsMesh:
+    """The mesh over every rank of ``group``, a sub-group of the launched
+    world (``dist.new_group``) that this rank belongs to; without one, over
+    every rank of the default process group (``multihost.initialize``), or
+    the size-1 mesh where none is initialized. ``device``: the rank's device
+    (``rank_device``); ``n_devices``, where given, must be the group's size
+    (1 without a group)."""
     dev = rank_device(device)
-    if dist.is_available() and dist.is_initialized():
+    if group is not None:
+        rank = dist.get_rank(group)
+        if rank < 0:
+            raise ValueError("this rank is not a member of the group")
+        size, backend = dist.get_world_size(group), dist.get_backend(group)
+    elif dist.is_available() and dist.is_initialized():
         size, rank, group = dist.get_world_size(), dist.get_rank(), dist.group.WORLD
         backend = dist.get_backend()
     else:

@@ -11,9 +11,9 @@ one device per process, the standard torch.distributed model:
 ``initialize`` reads torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) where the JAX package reads
 ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``.
-Its default backend is NCCL for ranks on the card and gloo for
-``device="cpu"``; an explicit ``backend=`` wins. NCCL refuses two ranks on
-one card, so ranks that share a card take ``backend="gloo"``.
+Its default backend is NCCL for ranks on cards of their own and gloo for
+``device="cpu"`` and for ranks that share a card (more ranks than cards,
+``mesh.rank_device``), which NCCL refuses; an explicit ``backend=`` wins.
 
 A rank owns the contiguous rows [rank * B_loc, (rank + 1) * B_loc) of a
 lists-sharded array, B_loc = rows / N; ``ShardedIVF`` builds only those
@@ -47,7 +47,8 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
     ``WORLD_SIZE`` (1), ``rank`` from ``RANK`` (0). With one process and no
     address configured this is a no-op, so the same script runs unchanged on
     one card and on many. ``device`` is the rank's (``mesh.rank_device``):
-    NCCL for a card, gloo for the CPU, unless ``backend`` says otherwise."""
+    NCCL for a card of its own, gloo for the CPU and for a world of more
+    ranks than the host has cards, unless ``backend`` says otherwise."""
     env = os.environ
     if init_method is None and "MASTER_ADDR" in env:
         init_method = f"tcp://{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
@@ -59,7 +60,9 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
                              "MASTER_ADDR and MASTER_PORT")
         return  # single process: nothing to initialize
     dev = rank_device(device)
-    backend = backend or ("gloo" if dev.type == "cpu" else "nccl")
+    if backend is None:
+        shared = dev.type == "cuda" and world_size > torch.cuda.device_count()
+        backend = "gloo" if dev.type == "cpu" or shared else "nccl"
     kwargs = {}
     if backend == "nccl":
         # NCCL binds the group to the rank's card; collectives that allocate
