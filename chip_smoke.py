@@ -37,7 +37,9 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               search's rows (ids are lossless); both kernels must have been
               launched by that path; the full-probe search (nprobe 1024,
               every size bucket through the dense all-pairs scan) must equal
-              brute force on the 1000 queries up to ties; then bits/id and
+              brute force on the 1000 queries up to ties; two more k-means
+              trainings at the index's shape must give its centroids bit
+              for bit (the sum per cluster is in a fixed order); then bits/id and
               phase times, and each search under torch.profiler (wall and
               device ms, idle share, the kernels with the most device time)
   5. codecs   the paper's other IVF id codecs on main's index: packed bits,
@@ -140,7 +142,14 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               shortlist and re-rank of P5 equal the uncompressed ones, the
               ROC kernels launched by every driver that reaches them, and 256 of codec_scale's lanes
               through both kernels equal to their plain versions
- 13. probes   the two decode-step probes against their plain versions
+ 13. probes   the two decode-step probes against their plain versions on
+              the CPU and on the card, then each kernel's own time (its
+              launches queued behind a spin of the card) and its wrapper
+              call's (with the input checks), K4 at 1, 275, 550 and 1100
+              steps, and the clock64() readings that bound a step of each:
+              a dependent shared load, two rank links (a compare, a warp
+              reduction of counts or a ballot and its count, an add), and
+              the SM clock
  14. chain    the chain probe (the codec's serial chain, no rank or select
               work, one lane on one thread) over the flat index's longest
               list, against the codec's streams and its plain version: the
@@ -162,8 +171,11 @@ The line before the last is a JSON object with each kernel's launch count
 against the plain version, its time beside the plain version's, its bound
 (``bound_ms``: the larger of the bytes it must move over the H100's 3.35
 TB/s and its operations over the 67 T/s scalar rate, from this run's inputs;
-``bound_by`` says which), for the probes ``latency_bound_ms`` (their
-dependent steps times a step's least latency), for the ROC kernels
+``bound_by`` says which), ``ms_timed`` (``call``: ``ms`` timed the
+wrapper's call, as for the ROC kernels; ``launch``: the launch alone, queued
+behind a spin of the card, as for the probes), for the probes
+``latency_bound_ms`` (their dependent steps times a step's least latency) and
+``call_ms`` (the wrapper's call with its input checks), for the ROC kernels
 ``chain_bound_ms``, ``launches_by_phase`` (``bench``: the experiment
 drivers' launches) and
 ``library_ms`` (null: no single PyTorch call
@@ -240,8 +252,12 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 # the latency of one dependent shared-memory load on Hopper, in SM cycles
 # (Luo et al., "Benchmarking and Dissecting the Nvidia Hopper GPU
-# Architecture", 2024): a step of the gather probe (K3) at the least
+# Architecture", 2024); the probes' bounds take the lesser of it and the
+# card's own clock64() reading (probe_latency_bounds)
 SHARED_LOAD_CYCLES = 29
+# spin cycles (torch.cuda._sleep, about 1 ms) queued before a kernel's timed
+# launches, so that the host's launch time hides behind it
+SPIN_CYCLES = 2_000_000
 
 
 def log(msg: str) -> None:
@@ -262,6 +278,25 @@ def cuda_ms(fn):
 def median_ms(fn, reps: int = 5) -> float:
     fn()  # warm-up
     return float(np.median([cuda_ms(fn)[0] for _ in range(reps)]))
+
+
+def kernel_ms(fn, launches: int = 10, reps: int = 5) -> float:
+    """The card's ms per call of ``fn``: CUDA events around ``launches``
+    back-to-back calls queued behind a spin of the card, so that the events
+    time the kernels and not the host's launches (median of ``reps``, after
+    a warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
 
 
 def host_s(fn):
@@ -344,14 +379,17 @@ def longest_steps(lengths, idx=None) -> int:
     return int(lens.sum(dim=1).max())
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work, **extra):
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work, ms_timed="call",
+                 **extra):
     """One kernel's entry of the JSON line (``work`` = (bound_ms,
-    bound_by))."""
+    bound_by)). ``ms_timed`` says what ``ms`` timed: ``call``, the wrapper's
+    call (CUDA events around one call, ``median_ms``), or ``launch``, the
+    launch alone (``kernel_ms``)."""
     return {"name": name, "route": "cuda",
             "source": f"vector_db_id_compression_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
-            "library_ms": None, **extra}
+            "ms_timed": ms_timed, "plain_ms": plain_ms, "bound_ms": work[0],
+            "bound_by": work[1], "library_ms": None, **extra}
 
 
 def assert_near_ties(what, D_got, I_got, D_ref, I_ref, rtol, atol):
@@ -630,6 +668,7 @@ def phase_main(xt, xb, xq):
         f"rtol 1e-4 atol 1e-3); launches {launches}")
     log(f"[main] bits/id {bits_per_id:.4f} (ROC {roc.compressed_ids_size_in_bytes} bytes "
         f"for {index.ntotal} ids; 64 bits/id uncompressed)")
+    kmeans_reproducible(xt, index.centroids)
 
     # exact search on the side: full probe on a few queries vs brute force
     xq_d = torch.from_numpy(xq).cuda()
@@ -666,6 +705,24 @@ def phase_main(xt, xb, xq):
             for name, t in times.items())
         + f"; full probe (nprobe {NLIST}, ROC, dense scan) {full_ms:.2f}")
     return index, roc, launches, I_bf[:, :K]
+
+
+def kmeans_reproducible(xt, centroids) -> None:
+    """Two more trainings of [main]'s coarse quantizer (train_kmeans at the
+    index's shape and defaults) must give its centroids bit for bit: the
+    update sums each cluster in a fixed order (search/kmeans.py
+    cluster_sums), where a float scatter-add on the card sums in the order
+    its atomics arrive."""
+    from vector_db_id_compression_tpu_torch.search.kmeans import train_kmeans
+
+    ms, again = cuda_ms(lambda: train_kmeans(xt, NLIST, device="cuda"))
+    third = train_kmeans(xt, NLIST, device="cuda")
+    for c in (again, third):
+        if not torch.equal(c, centroids):
+            raise AssertionError(f"k-means on the card differs from run to run: max "
+                                 f"|difference| {max_abs_err(c, centroids)}")
+    log(f"[main] k-means reproducible: two more train_kmeans calls ({NT} x {D} into {NLIST}, "
+        f"{ms:.1f} ms each) == the index's centroids bit for bit")
 
 
 def scan_paths(fn):
@@ -2207,17 +2264,24 @@ def phase_bench():
     return launches
 
 
-def phase_probes(seed: int):
-    """K3 and K4 on the card against their plain versions, on the inputs the
-    probe files draw (seeded here). Returns the two kernels' JSON entries."""
-    from vector_db_id_compression_tpu_torch.ops.probes import (
-        STEPS, ProbeDecodeStep, ProbeGather, probe_decode_step_plain, probe_gather_plain)
-
+def probe_inputs(seed: int):
+    """The inputs the probe files draw, seeded here, on the CPU: ((win, idx)
+    for K3, (buf, p) for K4)."""
     rng = np.random.default_rng(seed + 200)
     win = torch.from_numpy(rng.integers(0, 2**31, (256, 128)).astype(np.uint32).view(np.int32))
     idx = torch.zeros((256, 1), dtype=torch.int32)
     buf = torch.from_numpy(rng.integers(0, 2**31, (896, 256)).astype(np.int32))
     p = (torch.arange(256, dtype=torch.int32) % 17)[None, :]
+    return (win, idx), (buf, p)
+
+
+def phase_probes(seed: int):
+    """K3 and K4 on the card against their plain versions, on
+    ``probe_inputs``. Returns the two kernels' JSON entries."""
+    from vector_db_id_compression_tpu_torch.ops.probes import (
+        STEPS, ProbeDecodeStep, ProbeGather, probe_decode_step_plain, probe_gather_plain)
+
+    (win, idx), (buf, p) = probe_inputs(seed)
     cuda = torch.device("cuda")
     args3, args4 = (win.to(cuda), idx.to(cuda)), (buf.to(cuda), p.to(cuda))
     # ---- the probes' own run; launch counts from this window only
@@ -2228,29 +2292,39 @@ def phase_probes(seed: int):
                 "probe_decode_step": ProbeDecodeStep.launches}
     # ----
     entries = []
-    for name, got, plain_fn, args, cpu_args, run, src, replaces in (
-            ("probe_gather", got3, probe_gather_plain, args3, (win, idx), ProbeGather.run,
-             "probe_gather.cu", "tools/profiling/profile_pallas.py:20"),
+    for name, got, plain_fn, args, cpu_args, cls, src, replaces in (
+            ("probe_gather", got3, probe_gather_plain, args3, (win, idx), ProbeGather,
+             "probe_gather.cu", "tools/profiling/profile_pallas.py:21"),
             ("probe_decode_step", got4, probe_decode_step_plain, args4, (buf, p),
-             ProbeDecodeStep.run, "probe_decode_step.cu", "tools/profiling/profile_pallas2.py:34")):
+             ProbeDecodeStep, "probe_decode_step.cu", "tools/profiling/profile_pallas2.py:35")):
         if not torch.equal(got.cpu(), plain_fn(*cpu_args)):
             raise AssertionError(f"{name} kernel differs from its plain version on the CPU")
-        ms = median_ms(lambda: run(*args))
+        ms = kernel_ms(lambda: cls.launch(*args))
+        call_ms = median_ms(lambda: cls.run(*args))
         plain_ms, want = cuda_ms(lambda: plain_fn(*args))
         err = max_abs_err(got, want)
         if err:
             raise AssertionError(f"{name} kernel differs from its plain version on the card")
         log(f"[probes] {name}: {STEPS} steps, kernel == plain (on the CPU and on the card), "
             f"kernel {ms:.4f} ms ({ms * 1e3 / STEPS:.4f} us/step; CUDA-event median of 5 "
-            f"after a warm-up) vs plain {plain_ms:.1f} ms (one run on the card)")
+            f"runs of 10 launches queued behind a spin), the wrapper's call {call_ms:.4f} ms "
+            f"(with its input checks; median of 5), plain {plain_ms:.1f} ms (one run on the "
+            f"card)")
         B = cpu_args[0].shape[0 if name == "probe_gather" else 1]
         # K3: each row's window read, one gather per step; K4: buf read, the
         # emits written, the ranks' order statistics
         work = (bound(win.numel() * 4 + 8 * B, STEPS * B) if name == "probe_gather" else
                 bound(buf.numel() * 4 + 4 * B + STEPS * B * 4,
                       order_stat_ops(torch.full((B,), STEPS))))
+        extra = {}
+        if name == "probe_decode_step":
+            # K4's time against its steps: how a step's cost grows with the
+            # symbols each thread holds (a thread holds about i / 32 at step i)
+            extra["steps_scan_ms"] = {n: kernel_ms(lambda n=n: cls.launch(*args, n))
+                                      for n in (1, 275, 550, STEPS)}
         entries.append(kernel_entry(name, src, replaces, launches[name], err, ms, plain_ms,
-                                    work, us_per_step=ms * 1e3 / STEPS))
+                                    work, ms_timed="launch", us_per_step=ms * 1e3 / STEPS,
+                                    call_ms=call_ms, **extra))
     return entries
 
 
@@ -2297,28 +2371,59 @@ def phase_chain(index, roc):
     return dec_us, enc_us
 
 
-def probe_latency_bounds(entries, chain) -> None:
+def probe_latency_bounds(entries) -> None:
     """Each probe's latency bound (``latency_bound_ms``): its STEPS
-    dependent steps times the least time of one step. A step of K3 waits at
-    least for one dependent shared-memory load (SHARED_LOAD_CYCLES at the
-    card's maximum SM clock, from nvidia-smi); a step of K4 is a decode step
-    of the chain, whose floor is the chain probe's decode step (``chain``,
-    [chain]). The bytes-and-operations bound (``bound_ms``) is far below
-    either: a chain of dependent steps is bound by their latency."""
-    from vector_db_id_compression_tpu_torch.ops.probes import STEPS
+    dependent steps times the least time of one step, in SM cycles at the
+    card's maximum SM clock (nvidia-smi). A step of K3 waits at least for
+    one dependent shared-memory load (S: the lesser of SHARED_LOAD_CYCLES,
+    published, and the card's clock64() reading of a chain of them). In K4
+    the next value x' = x + w + rank waits for the rank of x, at least a
+    compare, a warp-wide reduction and an add (``R``: the lesser of the
+    card's clock64() readings of two such chains, a warp reduction of counts
+    and a ballot with its population count, ops/probes.py
+    step_latency_cycles), so a step takes at least R cycles, however the
+    rank's work is spread over threads (on one warp or more: at least one
+    reduction deep). The next gather's dependent load would raise the floor
+    of two steps to R + S only where S exceeded R, and a shared load (about
+    23 cycles) is below a rank link (40 or more): R alone is the floor. The
+    bytes-and-operations bound (``bound_ms``) is far below either: a chain
+    of dependent steps is bound by its latency."""
+    from vector_db_id_compression_tpu_torch.ops.probes import STEPS, step_latency_cycles
 
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    step_ms = {"probe_gather": SHARED_LOAD_CYCLES / (mhz * 1e3),
-               "probe_decode_step": chain[0] * 1e-3}
+    cyc = step_latency_cycles()
+    rank = min(cyc["rank_reduce"], cyc["rank_ballot"])
+    load = min(SHARED_LOAD_CYCLES, cyc["shared_load"])
+    log(f"[probes] clock64() readings on one warp (4096 links each): a rank link (compare, "
+        f"__reduce_add_sync, add) {cyc['rank_reduce']:.2f} cycles, (compare, __ballot_sync "
+        f"and __popc, add) {cyc['rank_ballot']:.2f} (R: the lesser), a dependent shared load "
+        f"{cyc['shared_load']:.2f} cycles (published: {SHARED_LOAD_CYCLES}; the bounds take "
+        f"the lesser, {load:.2f}); the SM clock they ran at {cyc['sm_mhz']:.0f} MHz (global "
+        f"timer), the maximum {mhz:.0f} MHz")
+    step_cycles = {"probe_gather": load, "probe_decode_step": rank}
+    why = {"probe_gather": f"{load:.2f} cycles, a dependent shared load (S)",
+           "probe_decode_step": f"R = {rank:.2f} cycles, the lesser rank link"}
     for e in entries:
-        e["latency_bound_ms"] = STEPS * step_ms[e["name"]]
-        log(f"[probes] {e['name']}: latency bound {STEPS} steps x "
-            f"{step_ms[e['name']] * 1e6:.2f} ns = {e['latency_bound_ms']:.4f} ms "
-            + (f"({SHARED_LOAD_CYCLES} cycles at the {mhz:.0f} MHz maximum SM clock)"
-               if e["name"] == "probe_gather" else "(the chain probe's decode step)")
-            + f"; the kernel takes {e['ms'] / e['latency_bound_ms']:.2f}x it")
+        name = e["name"]
+        e["latency_bound_ms"] = STEPS * step_cycles[name] / (mhz * 1e3)
+        e["latency_step_cycles"] = step_cycles[name]
+        e["sm_mhz"] = cyc["sm_mhz"]
+        log(f"[probes] {name}: latency bound {STEPS} steps x {why[name]} at the {mhz:.0f} MHz "
+            f"maximum SM clock = {e['latency_bound_ms']:.4f} ms; the kernel takes "
+            f"{e['ms'] / e['latency_bound_ms']:.2f}x it, the wrapper's call "
+            f"{e['call_ms'] / e['latency_bound_ms']:.2f}x; at the clock read, the kernel's "
+            f"{e['ms'] * cyc['sm_mhz'] * 1e3 / STEPS:.1f} cycles a step")
+        scan = e.get("steps_scan_ms")
+        if scan:
+            ns = sorted(scan)
+            log(f"[probes] {name} at {', '.join(str(n) for n in ns)} steps: "
+                + ", ".join(f"{scan[n]:.4f}" for n in ns) + " ms; cycles a step at the clock "
+                "read, between: " + ", ".join(
+                    f"{a}..{b} {(scan[b] - scan[a]) * cyc['sm_mhz'] * 1e3 / (b - a):.1f} (a "
+                    f"thread holds {a / 32:.0f}..{b / 32:.0f} symbols)"
+                    for a, b in zip(ns, ns[1:])))
 
 
 def lane_kernels_vs_plain(sorted_ids, lengths, prec, decoder):
@@ -2698,8 +2803,8 @@ def main() -> None:
     bench_launches_ = phase_bench()
     lap("bench")
     probes = phase_probes(args.seed)
+    probe_latency_bounds(probes)
     chain = phase_chain(index, roc)
-    probe_latency_bounds(probes, chain)
     per_node, chained = time_graph_kernels(g, roc_g, blk, nodes, graph_launches, per_unit,
                                            chain)
     per_chunk = time_pq_kernels(pq_index, pq_roc, pq_il, chain)
@@ -2732,9 +2837,9 @@ def main() -> None:
             ("probe", "off the main path"))
         chain_bound = (f", chain bound {e['chain_bound_ms']:.4f} ms "
                        f"({e['ms'] / e['chain_bound_ms']:.2f}x)" if "chain_bound_ms" in e else "")
-        log(f"[timing] {e['name']}: {e['ms']:.4f} ms, bound {e['bound_ms']:.5f} ms by "
-            f"{e['bound_by']} ({e['ms'] / e['bound_ms']:.0f}x the bound){chain_bound}, plain "
-            f"{e['plain_ms']:.1f} ms, no single PyTorch call; launches {e['launches']} in the "
+        log(f"[timing] {e['name']}: {e['ms']:.4f} ms (timed: the {e['ms_timed']}), bound "
+            f"{e['bound_ms']:.5f} ms by {e['bound_by']} ({e['ms'] / e['bound_ms']:.0f}x the "
+            f"bound){chain_bound}, plain {e['plain_ms']:.1f} ms, no single PyTorch call; launches {e['launches']} in the "
             f"paths' runs, {per[1]} {per[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -197,7 +197,11 @@ def test_codec_scale_equals_jax(capsys, argv):
     ref = _last_json(capsys)
     for key in ("ntotal", "nlist", "n_max", "interleave", "lanes", "lane_n_max", "bits_per_id"):
         assert row[key] == ref[key], key
-    assert row["decode_mids_s"] > 0 and row["encode_mids_s"] > 0
+    # the rates are rounded to 0.01 Mids/s, and 3000 ids on a loaded CPU can
+    # round to 0.0: this is no speed check (the card's rates are checked in
+    # chip_smoke.py [bench])
+    for key in ("decode_mids_s", "encode_mids_s"):
+        assert isinstance(row[key], float) and row[key] >= 0, key
     if "--lane-chunk" in argv:
         assert row["lanes"] > 4 and row["lane_n_max"] <= 2 * 128
 

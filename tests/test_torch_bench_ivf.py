@@ -18,6 +18,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -273,6 +274,62 @@ def test_scaling_search_one_rank(capsys):
     (row,) = out["rows"]
     assert set(row["phase_s"]) == {"coarse", "scan", "merge", "translate"}
     assert row["phase_cum_s"]["full"] > 0 and out["mode"] == "weak_scaling_search"
+
+
+def test_scaling_phases_are_stage_times(monkeypatch):
+    """Each stage is timed alone, so none is negative, and the cumulative
+    times are the stages' running sums. Differences of cumulative minima (the
+    JAX driver's way) went negative on the card (the merge -0.0008 s); here a
+    coarse stage that gets faster call by call, as a card's clocks and caches
+    warm up, would make them negative every time."""
+    from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
+
+    real_coarse, calls = ShardedIVF._coarse, [0]
+
+    def coarse(self, xq, nprobe):
+        calls[0] += 1
+        time.sleep(max(0.0, 0.1 - 0.005 * calls[0]))
+        return real_coarse(self, xq, nprobe)
+
+    monkeypatch.setattr(ShardedIVF, "_coarse", coarse)
+    rows = scaling.run_search(16, 30, 8, 32, 10, 4, 7, 3, [1], phases=True, device="cpu")
+    for row in rows:
+        stages, cum = row["phase_s"], row["phase_cum_s"]
+        assert all(isinstance(v, float) and v >= 0 for v in stages.values()), stages
+        assert set(cum) == {"coarse", "scan", "merge", "full"} and cum["full"] > 0
+        running = np.cumsum([stages[s] for s in ("coarse", "scan", "merge")])
+        np.testing.assert_allclose([cum[s] for s in ("coarse", "scan", "merge")], running,
+                                   atol=2e-4)
+
+
+def test_scaling_codec_tensors_on_the_rank_device(monkeypatch):
+    """``run`` hands the sharded encode and decode tensors that already lie on
+    the rank's device, so the timed calls copy no ids from the host. The
+    rank's device is made the meta device here, which no CPU tensor is on;
+    the encode runs on CPU copies of the same lists."""
+    from vector_db_id_compression_tpu_torch.parallel import mesh as mesh_mod
+
+    meta, cpu = torch.device("meta"), torch.device("cpu")
+    real_encode = mesh_mod.sharded_roc_encode
+    seen = []
+
+    def encode(mesh, ids, lengths, prec, cap):
+        seen.append(("encode", mesh.device, ids.device, lengths.device, prec.device))
+        ids_h, len_h, prec_h, _ = scaling.make_lists(ids.shape[0], 40, 7)
+        return real_encode(mesh_mod.ListsMesh(0, 1, cpu), torch.from_numpy(ids_h.view(np.int64)),
+                           torch.from_numpy(len_h), torch.from_numpy(prec_h), cap)
+
+    def decode(mesh, states, lengths, prec, n_max):
+        seen.append(("decode", mesh.device, lengths.device, prec.device))
+        time.sleep(0.001)  # a time the driver can divide by
+
+    monkeypatch.setattr(scaling, "rank_device", lambda device: meta)
+    monkeypatch.setattr(mesh_mod, "sharded_roc_encode", encode)
+    monkeypatch.setattr(mesh_mod, "sharded_roc_decode", decode)
+    (row,) = scaling.run(16, 40, 7, 2, [1], device="cpu")
+    assert {s[0] for s in seen} == {"encode", "decode"} and len(seen) >= 4
+    assert all(d == meta for s in seen for d in s[1:]), seen
+    assert row["ntotal"] == scaling.make_lists(16, 40, 7)[3]
 
 
 def test_scaling_search_takes_given_sizes_as_given(capsys):

@@ -16,11 +16,13 @@ import torch.distributed as dist
 from vector_db_id_compression_tpu_torch.codecs import roc_device as td
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
 from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
+from vector_db_id_compression_tpu_torch.ops._build import SHARED_BYTES_PER_BLOCK
 from vector_db_id_compression_tpu_torch.ops.probes import (
     ProbeChain,
     ProbeDecodeStep,
     ProbeGather,
     decode_ranks,
+    step_latency_cycles,
 )
 from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
 from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
@@ -30,6 +32,7 @@ from vector_db_id_compression_tpu_torch.parallel.search import ShardedIVF
 from vector_db_id_compression_tpu_torch.search import ivf
 from vector_db_id_compression_tpu_torch.search.graph_device import search_graph_device
 from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
+from vector_db_id_compression_tpu_torch.search.kmeans import assign, cluster_sums, train_kmeans
 from vector_db_id_compression_tpu_torch.search.nsg import build_nsg
 from vector_db_id_compression_tpu_torch.store.graph import (
     CompactBitGraph,
@@ -364,21 +367,61 @@ def test_decode_lane_out_of_range_raises(cuda, S):
                        dec.decode()[[2, 0]])
 
 
-@pytest.mark.parametrize("capp,steps", [(896, 1100), (2, 300)])
-def test_probes_match_plain(cuda, capp, steps):
-    rng = np.random.default_rng(capp)
-    win = torch.from_numpy(rng.integers(-2**31, 2**31, (256, 128)).astype(np.int32))
-    idx = torch.from_numpy(rng.integers(0, 128, (256, 1)).astype(np.int32))
-    buf = torch.from_numpy(rng.integers(-2**31, 2**31, (capp, 256)).astype(np.int32))
-    p = torch.arange(256, dtype=torch.int32)[None, :] % 17
+# words of one block's shared memory: the widest K3 window, and K4's largest
+# buffer at 1100 steps and most steps on a two-row buffer
+_SHARED_WORDS = SHARED_BYTES_PER_BLOCK // 4
+
+
+@pytest.mark.parametrize("capp,steps,W,B", [
+    (896, 1100, 128, 256), (2, 300, 128, 256), (896, 33, 128, 256), (896, 1, 128, 257),
+    (_SHARED_WORDS - 2 * 1100, 1100, _SHARED_WORDS // 32, 256),
+    (2, (_SHARED_WORDS - 2) // 2, 128, 3),
+], ids=["probe-shape", "two-row-buf", "steps-33", "one-step-257-lanes", "largest-buf-window",
+        "most-steps"])
+def test_probes_match_plain(cuda, capp, steps, W, B):
+    rng = np.random.default_rng(capp + steps)
+    win = torch.from_numpy(rng.integers(-2**31, 2**31, (B, W)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, W, (B, 1)).astype(np.int32))
+    idx[:8] = 0  # rows that start together, as the probe's do
+    buf = torch.from_numpy(rng.integers(-2**31, 2**31, (capp, B)).astype(np.int32))
+    p = torch.arange(B, dtype=torch.int32)[None, :] * 7 % 32
     before = (ProbeGather.launches, ProbeDecodeStep.launches)
     assert torch.equal(ProbeGather.run(win.to(cuda), idx.to(cuda), steps).cpu(),
                        ProbeGather.run(win, idx, steps))
     buf_k = buf.to(cuda)
     assert torch.equal(ProbeDecodeStep.run(buf_k, p.to(cuda), steps).cpu(),
                        ProbeDecodeStep.run(buf, p, steps))
+    torch.cuda.synchronize()
     assert torch.equal(buf_k.cpu(), buf)  # the kernel works on a copy
     assert (ProbeGather.launches, ProbeDecodeStep.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_step_latency_cycles(cuda):
+    """The clock64() readings behind K4's latency bound: positive, a link of
+    the rank (a compare, a warp reduction, an add) no faster than one integer
+    add, and an SM clock a card can run at."""
+    got = step_latency_cycles(cuda)
+    assert set(got) == {"rank_reduce", "rank_ballot", "shared_load", "sm_mhz"}
+    assert min(got["rank_reduce"], got["rank_ballot"], got["shared_load"]) >= 2, got
+    assert 100 <= got["sm_mhz"] <= 5000, got
+
+
+def test_train_kmeans_reproducible(cuda):
+    """Two trainings on the card give the same centroids bit for bit, at a
+    shape where about 200 rows share each centroid (the sum per cluster is
+    in a fixed order, ``search/kmeans.py`` ``cluster_sums``); and that sum
+    equals the CPU's, which adds in the same order."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((200_000, 128)).astype(np.float32)
+    x[:50_000] *= 0.1  # a dense region: clusters of unequal size
+    first = train_kmeans(x, 1024, device=cuda)
+    second = train_kmeans(x, 1024, device=cuda)
+    assert torch.equal(first, second)
+    a = assign(torch.from_numpy(x).to(cuda), first)
+    assert torch.equal(a, assign(torch.from_numpy(x).to(cuda), second))
+    sums, counts = cluster_sums(torch.from_numpy(x[:20_000]).to(cuda), a[:20_000], 1024)
+    sums_h, counts_h = cluster_sums(torch.from_numpy(x[:20_000]), a[:20_000].cpu(), 1024)
+    assert torch.equal(counts.cpu(), counts_h) and torch.equal(sums.cpu(), sums_h)
 
 
 def test_chain_probe_matches_plain(cuda):

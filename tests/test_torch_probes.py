@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import vector_db_id_compression_tpu  # noqa: F401  (x64 on, as in the whole suite)
+from vector_db_id_compression_tpu_torch.ops._build import SHARED_BYTES_PER_BLOCK
 from vector_db_id_compression_tpu_torch.ops.probes import (
     STEPS,
     ProbeDecodeStep,
@@ -123,3 +124,32 @@ def test_probe_wrappers_refuse_bad_input(bad):
             ProbeDecodeStep.run(buf_t, p_t + 32)
         else:
             ProbeDecodeStep.run(buf_t.to(torch.int64), p_t)
+
+
+@pytest.mark.parametrize("probe", ["gather", "decode-step-buf", "decode-step-steps"])
+def test_probe_wrappers_refuse_shapes_past_shared_memory(probe):
+    """K3 keeps a block's 32 windows and K4 a lane's buffer, symbols and
+    emits in shared memory: a shape past one block's limit raises, on the
+    CPU as on the card, naming the limit; the largest that fits runs."""
+    rng = np.random.default_rng(9)
+    if probe == "gather":
+        for W, fits in ((1817, False), (1816, True)):
+            win = torch.from_numpy(rng.integers(-2**31, 2**31, (4, W)).astype(np.int32))
+            idx = torch.zeros((4, 1), dtype=torch.int32)
+            if fits:
+                assert ProbeGather.run(win, idx, 3).shape == (4, 1)
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    ProbeGather.run(win, idx, 3)
+        return
+    most = SHARED_BYTES_PER_BLOCK // 4  # words of one block's shared memory
+    p = torch.zeros((1, 2), dtype=torch.int32)
+    if probe == "decode-step-buf":  # the largest buffer for 3 steps, and one row more
+        capp, steps, fits = most - 2 * 3, 3, True
+    else:  # the most steps on a two-row buffer, plus one (that fits: the CUDA test)
+        capp, steps, fits = 2, (most - 2) // 2 + 1, False
+    with pytest.raises(ValueError, match="shared memory"):
+        ProbeDecodeStep.run(torch.zeros((capp + int(fits), 2), dtype=torch.int32), p, steps)
+    if fits:
+        assert ProbeDecodeStep.run(torch.zeros((capp, 2), dtype=torch.int32), p,
+                                   steps).shape == (steps, 2)

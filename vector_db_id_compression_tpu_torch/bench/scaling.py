@@ -52,6 +52,26 @@ def _time(fn, runs: int, device) -> float:
     return min(seconds(fn, device)[0] for _ in range(runs))
 
 
+def _stage_time(fn, runs: int, device) -> float:
+    """Least seconds of ``fn`` over ``runs`` after a warm-up: between CUDA
+    events on a card (the device's time of the stage, not the host's), on
+    the host clock on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _time(fn, runs, device)
+    with torch.cuda.device(device):
+        fn()
+        best = float("inf")
+        for _ in range(runs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+    return best
+
+
 def make_lists(n_lists: int, ids_per_list: int, seed: int):
     """IVF-shaped workload: ``n_lists`` lists of ~``ids_per_list`` uniform
     ids each (every list drawn over its own dense id range so per-list
@@ -129,8 +149,10 @@ def run(lists_per_device: int, ids_per_list: int, seed: int, runs: int,
         ids, lengths, prec, ntotal = make_lists(B, ids_per_list, seed)
         cap = rd.stack_capacity(int(lengths.max()), int(prec.max()))
         n_max = ids.shape[1]
-        ids_t = torch.from_numpy(ids.view(np.int64))
-        len_t, prec_t = torch.from_numpy(lengths), torch.from_numpy(prec)
+        # on the rank's device before anything is timed, as the JAX driver
+        # puts them on its devices: the timed calls copy nothing from the host
+        ids_t, len_t, prec_t = (torch.as_tensor(a, device=dev)
+                                for a in (ids.view(np.int64), lengths, prec))
 
         def enc():
             st, _ = sharded_roc_encode(mesh, ids_t, len_t, prec_t, cap)
@@ -185,9 +207,9 @@ def run_search(lists_per_device: int, ids_per_list: int, d: int, nq: int,
     queries stay fixed — ideal weak scaling keeps query latency flat while
     capacity grows N×. Asserts at every scale that the N-device mesh returns
     the same (D, I) as a 1-device mesh over the SAME database. ``phases``
-    times the cumulative stages (coarse; + scan; + merge; the whole search)
-    and differences them into per-stage costs, as the JAX package's staged
-    programs do."""
+    times each of the four stages alone (CUDA events on a card), on inputs
+    computed beforehand, and the whole search; the JAX package differences
+    cumulative programs instead, which can give a stage a negative time."""
     from ..parallel.search import ShardedIVF
     from ..search.ivf import IndexIVF
     from ..store.invlists import AVAILABLE_COMPRESSED_IVFS
@@ -234,28 +256,22 @@ def run_search(lists_per_device: int, ids_per_list: int, d: int, nq: int,
                "qps": round(nq / t, 1)}
 
         if phases:
-            # cumulative stages, differenced into per-stage costs
-            def upto(stage):
-                def f():
-                    probes = sh._coarse(xq_d, nprobe)
-                    if stage == "coarse":
-                        return probes
-                    dist_, labels = sh._scan(xq_d, probes, k)
-                    if stage == "scan":
-                        return labels
-                    return sh._merge(dist_, labels, k)[1]
-                return f
-
-            cum = {s: _time(upto(s), runs, dev) for s in ("coarse", "scan", "merge")}
-            cum["full"] = _time(lambda: q()[1], runs, dev)
-            row["phase_cum_s"] = {s: round(v, 4) for s, v in cum.items()}
-            row["phase_s"] = {
-                "coarse": round(cum["coarse"], 4),
-                "scan": round(cum["scan"] - cum["coarse"], 4),
-                "merge": round(cum["merge"] - cum["scan"], 4),
-                "translate": round(cum["full"] - cum["merge"], 4)}
+            # each stage alone, on the previous stage's output computed
+            # beforehand (every rank runs the same stages in step: they hold
+            # collectives); the cumulative times are their running sums
+            probes = sh._coarse(xq_d, nprobe)
+            dist_, labels = sh._scan(xq_d, probes, k)
+            _, L = sh._merge(dist_, labels, k)
+            stage = {"coarse": _stage_time(lambda: sh._coarse(xq_d, nprobe), runs, dev),
+                     "scan": _stage_time(lambda: sh._scan(xq_d, probes, k), runs, dev),
+                     "merge": _stage_time(lambda: sh._merge(dist_, labels, k), runs, dev),
+                     "translate": _stage_time(lambda: sh._translate(L), runs, dev)}
+            cum = dict(zip(("coarse", "scan", "merge"), np.cumsum(list(stage.values()))))
+            cum["full"] = _stage_time(lambda: q()[1], runs, dev)
+            row["phase_cum_s"] = {s: round(float(v), 4) for s, v in cum.items()}
+            row["phase_s"] = {s: round(v, 4) for s, v in stage.items()}
             if rank == 0:
-                log(f"    phases (cumulative-diff): {row['phase_s']}")
+                log(f"    phases (each stage alone): {row['phase_s']}")
 
         if not base_t:
             base_t = dict(row)
@@ -288,8 +304,8 @@ def main(argv=None):
     p.add_argument("--search-k", type=int, default=10)
     p.add_argument("--search-nprobe", type=int, default=8)
     p.add_argument("--phases", action="store_true",
-                   help="with --search: time the cumulative stages "
-                        "(coarse/scan/merge/translate) per mesh size")
+                   help="with --search: time each stage "
+                        "(coarse/scan/merge/translate) alone per mesh size")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="each rank's device (default: a card)")
     args = p.parse_args(argv)

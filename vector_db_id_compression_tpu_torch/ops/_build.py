@@ -106,8 +106,10 @@ def load_library() -> ctypes.CDLL:
     lib.roc_decode_lane_bytes.restype = ctypes.c_longlong
     lib.probe_gather_launch.argtypes = [P, P, I, I, I, P, P]
     lib.probe_gather_launch.restype = I
-    lib.probe_decode_step_launch.argtypes = [P, P, I, I, I, P, P, P, P]
+    lib.probe_decode_step_launch.argtypes = [P, P, I, I, I, I, P, P]
     lib.probe_decode_step_launch.restype = I
+    lib.probe_step_latency_launch.argtypes = [I, P, P, P, P]
+    lib.probe_step_latency_launch.restype = I
     lib.probe_chain_decode_launch.argtypes = [P, P, I, P, P, P, P, P, I, I, P, I, I, P, P, P]
     lib.probe_chain_decode_launch.restype = I
     lib.probe_chain_encode_launch.argtypes = [P, P, P, I, I, P, I, I, P, P, I, P, P, P, P]

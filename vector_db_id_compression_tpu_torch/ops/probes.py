@@ -17,7 +17,12 @@ thread, to measure the floor of a step of both ROC kernels.
 run the plain versions (``probe_gather_plain``, ``probe_decode_step_plain``,
 ``chain_decode_plain``, ``chain_encode_plain``) on CPU tensors; a tensor on
 any other device raises, and a CUDA launch that fails raises. Each class
-counts its CUDA launches in ``launches``.
+counts its CUDA launches in ``launches``. K3 and K4 keep their rows' and
+lanes' state in shared memory: a shape whose state does not fit one block
+raises on either device (``gather_fits``, ``decode_step_fits``).
+
+``step_latency_cycles`` reads, with the card's clock, the cycles of the links
+that bound a step of K4 (``chip_smoke.py`` ``probe_latency_bounds``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,24 @@ from __future__ import annotations
 import torch
 
 from ..codecs import roc_device as rd
-from ._build import check_launch, load_library
+from ._build import SHARED_BYTES_PER_BLOCK, check_launch, load_library
 
 STEPS = 1100  # the probes' step count
 _MASK32 = 0xFFFFFFFF
+GATHER_ROWS = 32  # K3's rows a block (csrc/probe_lane.cuh kGatherRows)
+
+
+def gather_fits(W: int) -> bool:
+    """Whether K3's block of GATHER_ROWS windows of W words fits its shared
+    memory."""
+    return 4 * GATHER_ROWS * W <= SHARED_BYTES_PER_BLOCK
+
+
+def decode_step_fits(capp: int, steps: int) -> bool:
+    """Whether one K4 lane (its buf copy, symbols and emits:
+    csrc/probe_lane.cuh decode_step_lane_bytes) fits a block's shared
+    memory."""
+    return 4 * (capp + 2 * steps) <= SHARED_BYTES_PER_BLOCK
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -48,7 +67,8 @@ def probe_gather_plain(win: torch.Tensor, idx: torch.Tensor, steps: int = STEPS)
 
 
 def probe_decode_step_plain(buf: torch.Tensor, p: torch.Tensor, steps: int = STEPS):
-    """K4 in torch (the step is written out in ``csrc/probe_decode_step.cu``).
+    """K4 in torch (the step is written out in ``csrc/probe_lane.cuh``
+    ``decode_steps``).
     buf i32[capp, B], p i32[1, B] → emit i32[steps, B]; buf is not written
     (the steps work on a copy)."""
     capp, B = buf.shape
@@ -95,23 +115,35 @@ class ProbeGather:
     @staticmethod
     def run(win: torch.Tensor, idx: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
         """win i32[B, W] (u32 bit patterns), idx i32[B, 1] in [0, W) →
-        i32[B, 1]."""
+        i32[B, 1]. W at most what ``gather_fits``."""
         device = _check("win", win, 2)
         _check("idx", idx, 2, device)
         B, W = win.shape
         if idx.shape != (B, 1):
             raise ValueError(f"idx must be int32[{B}, 1]")
+        if not gather_fits(W):
+            raise ValueError(f"a window of {W} words does not fit the gather probe's shared "
+                             f"memory ({SHARED_BYTES_PER_BLOCK} bytes a block of "
+                             f"{GATHER_ROWS} rows: W <= "
+                             f"{SHARED_BYTES_PER_BLOCK // (4 * GATHER_ROWS)})")
         if B and (int(idx.min()) < 0 or int(idx.max()) >= W):
             raise ValueError(f"idx must lie in [0, {W})")
         if device.type == "cpu":
             return probe_gather_plain(win, idx, steps)
+        return ProbeGather.launch(win.contiguous(), idx.contiguous(), steps)
+
+    @staticmethod
+    def launch(win: torch.Tensor, idx: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
+        """The kernel's launch alone, on inputs that ``run`` has checked
+        (contiguous, on one card); for timing the kernel without the
+        checks' synchronisations."""
         lib = load_library()
-        win, idx = win.contiguous(), idx.contiguous()
-        out = torch.empty((B, 1), dtype=torch.int32, device=device)
-        with torch.cuda.device(device):
+        B, W = win.shape
+        out = torch.empty((B, 1), dtype=torch.int32, device=win.device)
+        with torch.cuda.device(win.device):
             code = lib.probe_gather_launch(
                 win.data_ptr(), idx.data_ptr(), B, W, steps, out.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
+                torch.cuda.current_stream(win.device).cuda_stream)
         check_launch(lib, code, "gather probe")
         ProbeGather.launches += 1
         return out
@@ -126,30 +158,63 @@ class ProbeDecodeStep:
     @staticmethod
     def run(buf: torch.Tensor, p: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
         """buf i32[capp, B], p i32[1, B] with shifts in [0, 32) → emit
-        i32[steps, B]. buf is not written."""
+        i32[steps, B]. buf is not written. capp and steps at most what
+        ``decode_step_fits``."""
         device = _check("buf", buf, 2)
         _check("p", p, 2, device)
         capp, B = buf.shape
         if p.shape != (1, B):
             raise ValueError(f"p must be int32[1, {B}]")
+        if not decode_step_fits(capp, steps):
+            raise ValueError(f"a lane of {capp} buffer words and {steps} steps does not fit "
+                             f"the decode-step probe's shared memory: 4 (capp + 2 steps) "
+                             f"<= {SHARED_BYTES_PER_BLOCK} bytes")
         if B and (int(p.min()) < 0 or int(p.max()) >= 32):
             raise ValueError("p must lie in [0, 32)")
         if device.type == "cpu":
             return probe_decode_step_plain(buf, p, steps)
+        return ProbeDecodeStep.launch(buf.contiguous(), p.contiguous(), steps)
+
+    @staticmethod
+    def launch(buf: torch.Tensor, p: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
+        """The kernel's launch alone, on inputs that ``run`` has checked."""
         lib = load_library()
-        buf, p = buf.contiguous(), p.contiguous()
-        i32 = dict(dtype=torch.int32, device=device)
-        emit = torch.empty((steps, B), **i32)
-        scratch = torch.empty((capp, B), **i32)
-        syms = torch.empty((steps, B), **i32)
-        with torch.cuda.device(device):
+        capp, B = buf.shape
+        emit = torch.empty((steps, B), dtype=torch.int32, device=buf.device)
+        with torch.cuda.device(buf.device):
             code = lib.probe_decode_step_launch(
-                buf.data_ptr(), p.data_ptr(), capp, B, steps, scratch.data_ptr(),
-                syms.data_ptr(), emit.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
+                buf.data_ptr(), p.data_ptr(), capp, B, steps, SHARED_BYTES_PER_BLOCK,
+                emit.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
         check_launch(lib, code, "decode-step probe")
         ProbeDecodeStep.launches += 1
         return emit
+
+
+def step_latency_cycles(device="cuda", iters: int = 4096) -> dict:
+    """SM cycles of one link of dependent chains on one warp of the card
+    (``csrc/probe_decode_step.cu`` ``probe_step_latency_kernel``, read with
+    clock64()): two ways a rank can feed K4's next value, ``rank_reduce``
+    (a compare, ``__reduce_add_sync`` of the counts, an add) and
+    ``rank_ballot`` (a compare, ``__ballot_sync`` and its population count,
+    an add); ``shared_load``, one dependent shared-memory load; and
+    ``sm_mhz``, the SM clock that the first chain ran at (its cycles over its
+    time on the global timer). A reading of the card's clock: there is no
+    plain version, and a CPU device raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the step latencies are read on a card, not on {device}")
+    lib = load_library()
+    seed = torch.arange(33, dtype=torch.int32, device=device) * 7919 - 100_000
+    cycles = torch.zeros(4, dtype=torch.int64, device=device)
+    sink = torch.empty(32, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        code = lib.probe_step_latency_launch(
+            iters, seed.data_ptr(), cycles.data_ptr(), sink.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    check_launch(lib, code, "step-latency probe")
+    reduce, load, ns, ballot = cycles.tolist()
+    return {"rank_reduce": reduce / iters, "rank_ballot": ballot / iters,
+            "shared_load": load / iters, "sm_mhz": reduce / ns * 1e3}
 
 
 def decode_ranks(ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Batched Lloyd k-means in torch.
 
 Port of the JAX package's ``search/kmeans.py``: assignment is one [n, d] x
-[d, k] matrix product per row block, the update a scatter-add. Randomness
-comes from an explicit ``torch.Generator`` seeded with ``seed``, so the
-centroids are reproducible on one device but are not the JAX package's
-(``jax.random`` draws other numbers from the same seed).
+[d, k] matrix product per row block, the update a segmented sum in a fixed
+order (``cluster_sums``). Randomness comes from an explicit
+``torch.Generator`` seeded with ``seed``, so the centroids are reproducible
+on one device, run after run, but are not the JAX package's (``jax.random``
+draws other numbers from the same seed).
 """
 
 from __future__ import annotations
@@ -28,11 +29,25 @@ def assign(x: torch.Tensor, centroids: torch.Tensor, budget: int = 2 ** 28) -> t
     return out
 
 
+def cluster_sums(x: torch.Tensor, a: torch.Tensor, k: int):
+    """(sums f32[k, d], counts i64[k]) of the rows ``x`` f32[n, d] by
+    cluster ``a`` i64[n]. Each cluster's rows are added one by one in row
+    order, from zero: the order of ``index_add_`` on the CPU, so the sums
+    equal it there bit for bit, and an order that does not change from run
+    to run on the card, where ``index_add_`` adds atomically in whatever
+    order the threads arrive (the JAX package's ``segment_sum`` is
+    reproducible too). A stable sort groups the rows by cluster; the
+    segmented sum adds each cluster's run in sequence."""
+    counts = torch.bincount(a, minlength=k)
+    rows = x[torch.sort(a, stable=True).indices]
+    return torch.segment_reduce(rows, "sum", lengths=counts, axis=0, unsafe=True), counts
+
+
 def _update(x: torch.Tensor, a: torch.Tensor, centroids: torch.Tensor,
             gen: torch.Generator) -> torch.Tensor:
     k = centroids.shape[0]
-    sums = torch.zeros_like(centroids).index_add_(0, a, x)
-    counts = torch.bincount(a, minlength=k).to(x.dtype)
+    sums, counts = cluster_sums(x, a, k)
+    counts = counts.to(x.dtype)
     # empty clusters: re-seed from random data points
     fallback = x[torch.randint(0, x.shape[0], (k,), generator=gen, device=x.device)]
     return torch.where((counts > 0)[:, None], sums / counts.clamp(min=1.0)[:, None], fallback)
