@@ -19,8 +19,8 @@ over the same database (an HNSW of M = 32 over the 65,536 centroids as the
 coarse quantizer, nprobe = 64), with the ids ROC-compressed per list and the
 quantizer's level-0 graph in the five containers. The QINCo path:
 IVF65536,QINCo16x8 over the same database (a neural residual codec of 16
-one-byte codes per vector), a shortlist of 100 at nprobe 64 with ROC ids,
-re-ranked through the codec's decoder. The sharded path: the flat and PQ
+one-byte codes per vector), a shortlist of 100 at nprobe 64 with raw ids and
+with each of the six id containers, re-ranked through the codec's decoder. The sharded path: the flat and PQ
 indexes searched through ``parallel/`` on torch.distributed, first as one
 NCCL rank, then as four gloo ranks sharing the card. Phases:
 
@@ -115,15 +115,20 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               the codec trained on its training vectors' residuals (RQ init,
               300 Adam steps of 256), add (encode), the search with
               return_codes=2 and a shortlist of 100 at nprobe 64, re-ranked
-              through the neural decoder, then the same with
-              RocInvertedLists; it fails unless the ROC search returns the
-              uncompressed shortlist (ids and codes) and the same re-ranked
-              ids, every list's ids come back from the ROC container, both
-              ROC kernels ran, the card's encode and decode equal the CPU's
-              on 4096 vectors (codes but for near ties, decode within 1e-4),
-              and the index saved and loaded searches and re-ranks as
-              before; then bits/id, the training, encode, add and search
-              times (positional, harvest, translate, re-rank), recall of the
+              through the neural decoder, then the same with each of the six
+              id containers of AVAILABLE_COMPRESSED_IVFS (packed bits, ROC,
+              Elias-Fano, the wavelet tree plain and RRR, interleaved ROC;
+              translated by random access but for ROC, as search_ivf_qinco
+              runs them); it fails unless each container's search returns
+              the uncompressed shortlist (ids and codes) and the same
+              re-ranked ids, every list's ids come back from each
+              container, both ROC kernels ran, the card's encode and decode
+              equal the CPU's on 4096 vectors (codes but for near ties,
+              decode within 1e-4), and the index saved and loaded searches
+              and re-ranks as before; then each container's bits/id, build,
+              translate and search ms and its ROC kernel launches, the
+              training, encode, add and search times (positional, harvest,
+              translate, re-rank), recall of the
               re-ranked and the linear ranking, the idle share, the file
  12. bench    the experiment drivers of bench/ (the JAX package's bench/),
               each through its main() on the card, outputs in a temporary
@@ -1770,6 +1775,28 @@ def qinco_code_ties(codec, x, got, want, tie: float = 1e-5) -> int:
     return len(rows)
 
 
+def qinco_lists_recovered(name, c, index) -> None:
+    """Every list's ids from the container ``c`` (``decode_lists`` over all
+    of [qinco]'s lists, each sorted) equal the index's source lists, or the
+    run fails."""
+    cuda = torch.device("cuda")
+    lengths = index.invlists.lengths
+    big = torch.iinfo(torch.int64).max
+    src = torch.full((HNSW_NLIST, max(int(lengths.max()), 1)), big, dtype=torch.int64)
+    for ln in np.flatnonzero(lengths):
+        src[ln, : lengths[ln]] = torch.from_numpy(np.sort(index.invlists.ids[ln].view(np.int64)))
+    src = src.to(cuda)
+    for lo in range(0, HNSW_NLIST, 16384):
+        hi = min(lo + 16384, HNSW_NLIST)
+        ids, lens = c.decode_lists(torch.arange(lo, hi, device=cuda))
+        cols = torch.arange(ids.shape[1], device=cuda)[None, :]
+        got = torch.where(cols < lens[:, None], ids, big).sort(dim=1).values
+        if not (torch.equal(lens.cpu(), torch.from_numpy(lengths[lo:hi]))
+                and torch.equal(got, src[lo:hi, : got.shape[1]])):
+            raise AssertionError(f"[qinco] {name}: the ids of lists {lo}..{hi - 1} differ from "
+                                 "the source lists")
+
+
 def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
     """IVF65536,QINCo16x8 with the flat quantizer over the [main] database,
     the shortlist re-ranked through the neural decoder: the paper's Table 4
@@ -1778,20 +1805,22 @@ def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
     65,536 centroids are [hnsw]'s k-means (over ``xt``, 2^21 vectors of the
     mixture), assigned directly; the codec is trained on ``xt``'s residuals
     to them, as ``IndexIVF.train`` trains it after its k-means. Then add,
-    the search with the uncompressed lists and with RocInvertedLists (the
-    shortlist's codes harvested), each re-ranked; fails unless the ROC
-    search returns the uncompressed search's shortlist and re-ranked ids,
-    every list's ids come back from the ROC container, both ROC kernels ran,
-    the card's codec equals the CPU's on QINCO_CHECK vectors, and the index
-    saved and loaded searches as before. Returns (the index, its ROC
-    container, this phase's launch counts)."""
+    the search with the uncompressed lists and then with each container of
+    ``AVAILABLE_COMPRESSED_IVFS`` (the shortlist's codes harvested; the
+    translate by random access except for ``roc``, as ``search_ivf_qinco``
+    runs it), each re-ranked; fails unless every container's search returns
+    the uncompressed search's shortlist and re-ranked ids, every list's ids
+    come back from each container, both ROC kernels ran, the card's codec
+    equals the CPU's on QINCO_CHECK vectors, and the index saved and loaded
+    searches as before. Returns (the index, its ROC container, this phase's
+    launch counts)."""
     from vector_db_id_compression_tpu_torch.bench.search_ivf_qinco import rerank
     from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF, load_index, save_index
     from vector_db_id_compression_tpu_torch.search.kmeans import assign
-    from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+    from vector_db_id_compression_tpu_torch.store.invlists import AVAILABLE_COMPRESSED_IVFS
 
     cuda = torch.device("cuda")
     xq_d = torch.from_numpy(xq).to(cuda)
@@ -1800,9 +1829,12 @@ def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
     del xt_d
     spans = {}
 
-    def search():
+    def search(one_by_one=None):
         return index.search_defer_id_decoding(xq, QINCO_NSHORT, nprobe=QINCO_NPROBE,
-                                              return_codes=2)
+                                              decode_1by1=one_by_one, return_codes=2)
+
+    def counts():
+        return {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
 
     # ---- the [qinco] path, through the user-facing entry points; the
     # kernels' launch counts are read from this window only
@@ -1819,12 +1851,18 @@ def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
     del codec.encode
     D0, I0, C0 = search()
     R0 = rerank(index, xq_d, I0, C0, K)
-    t_roc, roc = cuda_ms(lambda: RocInvertedLists(index.invlists, device=cuda))
-    index.replace_invlists(roc)
-    D1, I1, C1 = search()
-    R1 = rerank(index, xq_d, I1, C1, K)
-    torch.cuda.synchronize()
-    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+    modes = {}
+    for name, make in AVAILABLE_COMPRESSED_IVFS.items():
+        before = counts()
+        t_build, c = cuda_ms(lambda: make(index.invlists, device=cuda))
+        index.replace_invlists(c)
+        one_by_one = name != "roc"  # search_ivf_qinco's policy (reference :417)
+        Dm, Im, Cm = search(one_by_one)
+        modes[name] = {"container": c, "build_ms": t_build, "one_by_one": one_by_one,
+                       "out": (Dm, Im, Cm), "rerank": rerank(index, xq_d, Im, Cm, K)}
+        torch.cuda.synchronize()
+        modes[name]["launches"] = {k: n - before[k] for k, n in counts().items()}
+    launches = counts()
     # ----
     if min(launches.values()) < 1:
         raise AssertionError(f"[qinco] a kernel of the path was not launched: {launches}")
@@ -1839,40 +1877,50 @@ def phase_qinco(seed: int, xt, centroids, xb, xq, I_bf):
         f"code bytes per vector {index.code_size} ({QINCO_M} codes + 4 norm); launches "
         f"{launches} (host clock, synchronised)")
 
-    # gate 1: the ROC search returns the uncompressed shortlist (the same
-    # entries' codes) and the same re-ranked ids
-    for name, (Dx, Ix, Cx) in (("uncompressed", (D0, I0, C0)), ("ROC", (D1, I1, C1))):
-        width = index.coarse_code_size + index.code_size
+    # gate 1: every container's search returns the uncompressed shortlist
+    # (the same entries' codes) and the same re-ranked ids; gate 2: every
+    # list's ids from every container
+    width = index.coarse_code_size + index.code_size
+    o0 = I0.argsort(dim=1)
+    rows = torch.arange(NQ, device=cuda)[:, None]
+    _, L = index.search_positional(xq, QINCO_NSHORT, QINCO_NPROBE)
+    labels = int((L >= 0).sum())
+    for name, m in (("uncompressed", {"out": (D0, I0, C0)}), *modes.items()):
+        Dx, Ix, Cx = m["out"]
         if (Ix.shape != (NQ, QINCO_NSHORT) or Cx.shape != (NQ, QINCO_NSHORT, width)
                 or int(Ix.max()) >= NB or not bool(torch.isfinite(Dx[Ix >= 0]).all())):
             raise AssertionError(f"[qinco] {name} search: bad shapes, ids or distances")
-    o0, o1 = I0.argsort(dim=1), I1.argsort(dim=1)
-    rows = torch.arange(NQ, device=cuda)[:, None]
-    if not (torch.equal(I0.gather(1, o0), I1.gather(1, o1))
-            and torch.equal(C0[rows, o0], C1[rows, o1])):
-        raise AssertionError("[qinco] the ROC search's shortlist (ids or codes) differs from "
-                             "the uncompressed search's")
-    torch.testing.assert_close(D1, D0, rtol=1e-4, atol=1e-3)
-    ties = assert_near_ties("[qinco] re-rank after the ROC search", *R1, *R0, 1e-6, 1e-6)
-    # gate 2: every list's ids from the ROC container
-    big = torch.iinfo(torch.int64).max
-    for lo in range(0, HNSW_NLIST, 8192):
-        hi = min(lo + 8192, HNSW_NLIST)
-        ids, lens = roc.decode_lists(torch.arange(lo, hi, device=cuda))
-        cols = torch.arange(ids.shape[1], device=cuda)[None, :]
-        got = torch.where(cols < lens[:, None], ids, big).sort(dim=1).values.cpu().numpy()
-        for i, ln in enumerate(range(lo, hi)):
-            n = int(lengths[ln])
-            want = np.sort(index.invlists.ids[ln].view(np.int64))
-            if int(lens[i]) != n or not np.array_equal(got[i, :n], want):
-                raise AssertionError(f"[qinco] list {ln}: the ROC container's ids differ")
-    log(f"[qinco] RocInvertedLists search (nprobe {QINCO_NPROBE}, shortlist {QINCO_NSHORT}, "
-        f"return_codes=2) == uncompressed: the same ids and entry codes per row, D within "
-        f"rtol 1e-4 atol 1e-3 (identical: {torch.equal(D1, D0)}); re-ranked top {K} equal "
-        f"under the near-tie rule, rtol 1e-6 (labels at near ties {ties}); every list's ids "
-        f"recovered by decode_lists; "
-        f"bits/id {roc.compressed_ids_size_in_bytes * 8 / NB:.4f} + overhead "
-        f"{roc.overhead_in_bytes * 8 / NB:.4f} (built in {t_roc:.1f} ms)")
+    for name, m in modes.items():
+        c, (Dx, Ix, Cx) = m["container"], m["out"]
+        o1 = Ix.argsort(dim=1)
+        if not (torch.equal(I0.gather(1, o0), Ix.gather(1, o1))
+                and torch.equal(C0[rows, o0], Cx[rows, o1])):
+            raise AssertionError(f"[qinco] the {name} search's shortlist (ids or codes) differs "
+                                 "from the uncompressed search's")
+        torch.testing.assert_close(Dx, D0, rtol=1e-4, atol=1e-3)
+        ties = assert_near_ties(f"[qinco] re-rank after the {name} search", *m["rerank"], *R0,
+                                1e-6, 1e-6)
+        qinco_lists_recovered(name, c, index)
+        index.replace_invlists(c)
+        translate_ms = median_ms(lambda: index._translate(L, m["one_by_one"]))
+        kernels, copies, device_ms = device_ops(lambda: index._translate(L, m["one_by_one"]))
+        search_ms = median_ms(lambda: search(m["one_by_one"]))
+        how = ("random access" if m["one_by_one"] and c.supports_random_access else "grouped")
+        log(f"[qinco] {name} (nprobe {QINCO_NPROBE}, shortlist {QINCO_NSHORT}, return_codes=2, "
+            f"{how} translate) == uncompressed: the same ids and entry codes per row, D within "
+            f"rtol 1e-4 atol 1e-3 (identical: {torch.equal(Dx, D0)}); re-ranked top {K} equal "
+            f"under the near-tie rule, rtol 1e-6 (labels at near ties {ties}); every list's ids "
+            f"recovered by decode_lists; bits/id {c.compressed_ids_size_in_bytes * 8 / NB:.4f} + "
+            f"overhead {c.overhead_in_bytes * 8 / NB:.4f}; built in {m['build_ms']:.1f} ms; "
+            f"translate of {labels} labels {translate_ms:.3f} ms ({kernels} kernels, {copies} "
+            f"copies/memsets, device busy {device_ms:.3f} ms); search {search_ms:.2f} ms "
+            f"(CUDA-event medians of 5 after a warm-up); ROC kernel launches in its path "
+            f"{m['launches']}")
+    roc = modes["roc"]["container"]
+    index.replace_invlists(roc)
+    D1, I1, C1 = modes["roc"]["out"]
+    R1 = modes["roc"]["rerank"]
+    del modes
 
     # gate 3: the card's codec against the same weights on the CPU
     cpu = QincoCodec(D, QINCO_M, QINCO_KSUB, QINCO_HIDDEN, device="cpu").load_state_dict(

@@ -667,3 +667,51 @@ def test_bench_drivers_on_card(cuda, tmp_path):
                             "--chunk-target", "256"])
     assert row["lanes"] > 16 and row["decode_mids_s"] > 0 and row["encode_mids_s"] > 0
     assert RocEncoder.launches > enc and RocDecoder.launches > dec
+
+
+def test_search_ivf_qinco_six_modes_on_card(cuda, tmp_path, monkeypatch):
+    """P5 (``search_ivf_qinco``) over one tiny workdir (the fixture of
+    ``tests/test_torch_table4.py``), trained and added by the port's driver
+    on the CPU, then searched in each of the six ``--id_compression`` modes
+    on the card and on the CPU: the card's shortlist is the CPU's under the
+    near-tie rule, ids_size and bits/id are the CPU's, the ROC mode launches
+    both kernels, and the card's recalls are the same in every mode that
+    keeps each list's order (ROC reorders a list's entries, so exact ties of
+    entries with equal codes may fall otherwise)."""
+    from vector_db_id_compression_tpu_torch.bench import search_ivf_qinco
+
+    args = ["--dataset", "synthetic", "--synth_scale", "0.02", "--nlist", "16", "--M", "4",
+            "--ksub", "32", "--hidden", "32", "--qinco_steps", "60", "--runs", "1",
+            "--workdir", str(tmp_path)]
+    search_ivf_qinco.main([*args, "--todo", "train", "add", "--device", "cpu"])
+    seen = []
+    search = IndexIVF.search_defer_id_decoding
+
+    def record(self, *a, **kw):
+        out = search(self, *a, **kw)
+        seen.append(tuple(t.cpu() for t in out))
+        return out
+
+    monkeypatch.setattr(IndexIVF, "search_defer_id_decoding", record)
+    recalls = {}
+    for mode in ("none", "packed-bits", "elias-fano", "roc", "wavelet-tree", "wavelet-tree-1"):
+        argv = [*args, "--todo", "search", "--id_compression", mode, "--defer_id_decoding",
+                "--nprobe", "4", "--nshort", "20", "--k", "10"]
+        res_cpu = search_ivf_qinco.main([*argv, "--device", "cpu"])
+        D0, I0, _ = seen[-1]
+        enc, dec = RocEncoder.launches, RocDecoder.launches
+        res = search_ivf_qinco.main([*argv, "--device", "cuda"])
+        D1, I1, codes = seen[-1]
+        torch.cuda.synchronize()
+        assert (res["ids_size"], res["bits_per_id"]) == (res_cpu["ids_size"],
+                                                         res_cpu["bits_per_id"]), mode
+        finite = torch.isfinite(D0)
+        assert torch.equal(torch.isfinite(D1), finite)
+        torch.testing.assert_close(D1[finite], D0[finite], rtol=1e-4, atol=1e-3)
+        assert bool(((I1 == I0) | torch.isclose(D1, D0, rtol=1e-4, atol=1e-3)).all()), mode
+        assert codes.shape == (*I1.shape, 1 + 8)  # list number byte, 4 codes, the norm
+        if mode == "roc":
+            assert RocEncoder.launches > enc and RocDecoder.launches > dec
+        else:
+            recalls[mode] = [r["recalls"] for r in res["results"]]
+    assert all(r == recalls["none"] for r in recalls.values()), recalls
