@@ -7,11 +7,19 @@
 # "scaling" it runs the weak-scaling driver over every card of the node; with
 # "table4", the paper's Table 4 (the counterpart of the JAX package's
 # tools/run_table4.sh, and of tools/scale_runs.sh's IVF4096,QINCo8 sweep) on
-# one card, exiting nonzero when a mode fails or its gates do not hold.
+# one card, exiting nonzero when a mode fails or its gates do not hold; with
+# "recorded", the JAX package's last recorded runs without an H100
+# counterpart (search_100m's seven codecs at 10^8 over 65,536 lists and four
+# over 262,144, P1 with IVF1024,PQ16 and with IVF128,Flat at 10^6, the flat
+# quantizer over 2^20 centroids, codec_scale at 3 x 10^7, the small P1, P2
+# and P5 runs) on one card, then the ROC kernels at their lane shapes and
+# bench/recorded.py's gates, exiting nonzero when a run fails or a gate does
+# not hold.
 #
 #   OUT=DIR bash chip_bench.sh
 #   OUT=DIR bash chip_bench.sh scaling
 #   OUT=DIR bash chip_bench.sh table4
+#   OUT=DIR bash chip_bench.sh recorded
 set -u
 OUT=${OUT:-bench_h100}
 mkdir -p "$OUT"
@@ -76,6 +84,70 @@ if [ "${1:-}" = "table4" ]; then
         || failed="$failed sweep_check"
     rm -rf "$wd"
     cat "$LOG.table4_check" "$LOG.sweep_check"
+    [ -z "$failed" ] || { echo "FAILED:$failed" | tee -a "$LOG"; exit 1; }
+    exit 0
+fi
+
+if [ "${1:-}" = "recorded" ]; then
+    # each run a process of its own under its own time limit (PERF.md's
+    # predictions, about twice each), in the order of the JAX package's
+    # records; a run that fails is named at the end, the rest go on
+    failed=""
+    r=results
+    run search_100m timeout 3000 python -m $M.search_100m --ntotal 100000000 --nlist 65536 \
+        --methods none packed-bits elias-fano roc roc-interleaved wavelet-tree wavelet-tree-1 \
+        --out "$OUT/search_100m_h100.json" || failed="$failed search_100m"
+    run search_100m_262k timeout 1500 python -m $M.search_100m --ntotal 100000000 \
+        --nlist 262144 --methods none roc elias-fano packed-bits \
+        --out "$OUT/search_100m_262k_h100.json" || failed="$failed search_100m_262k"
+    run p1_pq16 timeout 1200 python -m $M.bench_invlists --dataset synthetic --synth_scale 10 \
+        --index IVF1024,PQ16 --nprobe 1 4 16 --runs 20 --fused \
+        --out "$OUT/bench_invlists_synthetic1m_pq16_h100.csv" || failed="$failed p1_pq16"
+    run p1_longlist timeout 900 python -m $M.bench_invlists --dataset synthetic \
+        --synth_scale 10 --index IVF128,Flat --nprobe 1 4 --runs 5 \
+        --methods ref roc roc-interleaved \
+        --out "$OUT/bench_invlists_synthetic1m_longlist_h100.csv" || failed="$failed p1_longlist"
+    # the ROC kernels over the long lists (their layout, against the plain
+    # versions), over search_100m's 262,144 lists and its 65,536 lists'
+    # interleaved lanes
+    run lanes_ivf128 timeout 900 python -m $M.recorded lanes --index IVF128,Flat \
+        --synth_scale 10 --plain --csv "$OUT/bench_invlists_synthetic1m_longlist_h100.csv" \
+        --out "$OUT/lanes_ivf128_h100.json" || failed="$failed lanes_ivf128"
+    for nlist in 65536 262144; do
+        run lanes_100m_$nlist timeout 900 python -m $M.recorded lanes --ntotal 100000000 \
+            --nlist $nlist --out "$OUT/lanes_100m_${nlist}_h100.json" \
+            || failed="$failed lanes_100m_$nlist"
+    done
+    run quantizer_1m timeout 600 python -m $M.quantizer_bench --nlist 1048576 --nprobe 128 \
+        --skip-hnsw --out "$OUT/quantizer_1m_flat_h100.json" \
+        --dump-probes "$OUT/quantizer_1m_flat_probes.npy" || failed="$failed quantizer_1m"
+    run codec_scale_30m timeout 600 python -m $M.codec_scale --ntotal 30000000 --nlist 65536 \
+        || failed="$failed codec_scale_30m"
+    { echo "=== python -m $M.codec_scale --ntotal 30000000 --nlist 65536 ==="
+      grep -h '^{' "$LOG.codec_scale_30m"; } > "$OUT/codec_scale_30m_h100.jsonl"
+    run p1_small timeout 600 python -m $M.bench_invlists --dataset synthetic --synth_scale 0.3 \
+        --index IVF128,Flat --nprobe 1 4 16 --runs 2 \
+        --out "$OUT/bench_invlists_synthetic_h100.csv" || failed="$failed p1_small"
+    run p2_small timeout 600 python -m $M.graph_dynamic_bench --dataset synthetic \
+        --synth_scale 0.05 --max-degree 16 --k 10 --runs 10 \
+        --out "$OUT/graph_dynamic_bench_synthetic_h100.csv" || failed="$failed p2_small"
+    wd=$OUT/qinco_small
+    run p5_small timeout 900 python -m $M.search_ivf_qinco --todo train add search \
+        --dataset synthetic --synth_scale 0.3 --workdir "$wd" --nlist 128 --M 8 --hidden 128 \
+        --qinco_steps 400 --id_compression roc --defer_id_decoding --nprobe 16 --nshort 100 \
+        --k 100 --runs 3 && cp "$wd/search_results.json" "$OUT/search_ivf_qinco_synthetic_h100.json" \
+        || failed="$failed p5_small"
+    rm -rf "$wd"
+    run recorded_check python -m $M.recorded check \
+        --search-100m "$OUT/search_100m_h100.json" $r/search_100m_tpu.json \
+        --search-100m "$OUT/search_100m_262k_h100.json" $r/search_100m_262k_tpu.json \
+        --p1 "$OUT/bench_invlists_synthetic1m_pq16_h100.csv" \
+        --p1 "$OUT/bench_invlists_synthetic1m_longlist_h100.csv" \
+        --p1 "$OUT/bench_invlists_synthetic_h100.csv" \
+        --codec-scale "$OUT/codec_scale_30m_h100.jsonl" $r/codec_scale_tpu.jsonl \
+        --quantizer "$OUT/quantizer_1m_flat_h100.json" "$OUT/quantizer_1m_flat_probes.npy" \
+        || failed="$failed check"
+    cat "$LOG.recorded_check"
     [ -z "$failed" ] || { echo "FAILED:$failed" | tee -a "$LOG"; exit 1; }
     exit 0
 fi

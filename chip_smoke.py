@@ -139,13 +139,17 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               at the JAX package's recorded runs' sizes; P3 and P4 (graph_static_bench,
               generate_graph_edgelists), hnsw_bench, P5 (search_ivf_qinco:
               train, add, search with raw and ROC ids), wt_translate_bench
-              (plain and RRR planes), quantizer_bench, search_100m and
-              scaling (one rank) cut to sizes that fit (BENCH_ARGS). Gates:
+              (plain and RRR planes), quantizer_bench, search_100m (all
+              seven id containers) and scaling (one rank) cut to sizes
+              that fit (BENCH_ARGS). Gates:
               the drivers' own checks (round trips, oracles, invariance),
               recall equal across a driver's id containers, 64 bits/id
-              for P1's raw lists and fewer for every id codec, the ROC
+              for P1's raw lists and fewer for every id codec, search_100m's
+              packed bits at its width plus list padding and every other
+              codec below, the ROC
               shortlist and re-rank of P5 equal the uncompressed ones, the
-              ROC kernels launched by every driver that reaches them, and 256 of codec_scale's lanes
+              ROC kernels launched by every driver that reaches them (in
+              search_100m, by roc and by roc-interleaved), and 256 of codec_scale's lanes
               through both kernels equal to their plain versions
  13. probes   the two decode-step probes against their plain versions on
               the CPU and on the card, then each kernel's own time (its
@@ -2106,10 +2110,12 @@ def phase_bench():
         search_ivf_qinco, wt_translate_bench)
     from vector_db_id_compression_tpu_torch.bench.datasets import get_dataset
     from vector_db_id_compression_tpu_torch.bench.search_ivf_qinco import rerank
+    from vector_db_id_compression_tpu_torch.codecs.packed_bits import packed_width
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.ivf import load_index
-    from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
+    from vector_db_id_compression_tpu_torch.store.invlists import (AVAILABLE_COMPRESSED_IVFS,
+                                                                   RocInvertedLists)
 
     cuda = torch.device("cuda")
     spent, found = {}, {}
@@ -2281,18 +2287,52 @@ def phase_bench():
                 f"ef {h['ef']} {h['ms']} ms overlap {h['probe_overlap']} top-1 "
                 f"{h['top1_agree']}" for h in row["hnsw"]))
 
-        # ---- the 100M driver, cut
-        rows, got = drive("search_100m", search_100m, [
-            *BENCH_ARGS["search_100m"], "--out", str(tmp / "s100m.json")])
-        need("search_100m", got, ["roc_encode", "roc_decode"])
+        # ---- the 100M driver, cut, over all seven id containers (the JAX
+        # package's recorded matrix); each container's launches counted from
+        # its build to the next one's
+        marks, factories = {}, dict(AVAILABLE_COMPRESSED_IVFS)
+
+        def marked(m, make):
+            def build(il, **kw):
+                marks[m] = bench_launches()
+                return make(il, **kw)
+            return build
+
+        AVAILABLE_COMPRESSED_IVFS.update({m: marked(m, f) for m, f in factories.items()})
+        try:
+            rows, got = drive("search_100m", search_100m, [
+                *BENCH_ARGS["search_100m"], "--methods", *search_100m.METHODS,
+                "--out", str(tmp / "s100m.json")])
+        finally:
+            AVAILABLE_COMPRESSED_IVFS.update(factories)
+        built = [m for m in search_100m.METHODS if m != "none"]
+        ends = [marks[m] for m in built[1:]] + [bench_launches()]
+        per_method = {m: {k: e[k] - marks[m][k] for k in e} for m, e in zip(built, ends)}
+        for m in ("roc", "roc-interleaved"):
+            need(f"search_100m {m}", per_method[m], ["roc_encode", "roc_decode"])
+        if [r["method"] for r in rows[::2]] != search_100m.METHODS:
+            raise AssertionError(f"[bench] search_100m: rows {[r['method'] for r in rows]}")
         recall = equal_recall("search_100m", rows)
-        found["search_100m"] = {"recall_1": recall, "launches": got, "rows": [
+        # packed bits: packed_width(ntotal) bits an id and each list's words'
+        # padding (fewer than 32 bits a list); every other codec fewer
+        ntotal, nlist = rows[0]["ntotal"], rows[0]["nlist"]
+        width = packed_width(ntotal)
+        bits = {r["method"]: r["bits_per_id"] for r in rows}
+        if not (width <= bits["packed-bits"] < width + 32 * nlist / ntotal and bits["none"] == 64
+                and all(b < bits["packed-bits"] for m, b in bits.items()
+                        if m not in ("none", "packed-bits"))):
+            raise AssertionError(f"[bench] search_100m bits/id {bits}, packed width {width}")
+        found["search_100m"] = {"recall_1": recall, "launches": got,
+                                "launches_by_method": per_method, "rows": [
             {k: r[k] for k in ("method", "nprobe", "t_search", "t_search_min", "bits_per_id")}
             for r in rows]}
-        log(f"[bench] search_100m ({BENCH_ARGS['search_100m']}, the LUT byte scan): recall@1 "
-            f"{recall} equal across containers; " + "; ".join(
+        log(f"[bench] search_100m ({BENCH_ARGS['search_100m']}, the LUT byte scan, seven id "
+            f"containers): recall@1 {recall} equal across them; packed bits "
+            f"{bits['packed-bits']} bits/id (width {width}), every other codec fewer; " + "; ".join(
                 f"{r['method']} nprobe {r['nprobe']} {r['t_search'] * 1e3:.3f} ms "
-                f"{r['bits_per_id']:.4f} bits/id" for r in rows) + f"; launches {got}")
+                f"{r['bits_per_id']:.4f} bits/id" for r in rows)
+            + f"; launches {got}, of roc {per_method['roc']}, of roc-interleaved "
+            f"{per_method['roc-interleaved']}")
 
         # ---- weak scaling on one rank: the codec, and the sharded search
         codec, got = drive("scaling", scaling, BENCH_ARGS["scaling"])

@@ -48,8 +48,9 @@ def read_csv(path):
         return r.fieldnames, list(r)
 
 
-@pytest.mark.parametrize("index_str", ["IVF8,Flat", "IVF8,PQ4"])
-def test_bench_invlists_equals_jax_on_the_same_index(tmp_path, monkeypatch, index_str):
+def _p1_on_the_same_index(tmp_path, monkeypatch, index_str, nprobes, **kw):
+    """P1 through both drivers on one index the JAX package built → (port
+    rows, JAX rows as read back from the CSVs, the port's index)."""
     ds_j = jax_datasets.SyntheticDataset(*TINY)
     ds = datasets.SyntheticDataset(*TINY, device="cpu")
     jidx = jax_bench.build_index(ds_j, index_str)
@@ -57,19 +58,43 @@ def test_bench_invlists_equals_jax_on_the_same_index(tmp_path, monkeypatch, inde
     monkeypatch.setattr(jax_bench, "build_index", lambda *a, **kw: jidx)
     monkeypatch.setattr(bench_invlists, "build_index",
                         lambda *a, **kw: load_index(tmp_path / "index.npz", device="cpu"))
-    ours = bench_invlists.run_bench(ds, index_str, runs=1, nprobes=(1, 4),
-                                    out_csv=str(tmp_path / "port.csv"), device="cpu")
-    ref = jax_bench.run_bench(ds_j, index_str, runs=1, nprobes=(1, 4),
-                              out_csv=str(tmp_path / "jax.csv"))
+    ours = bench_invlists.run_bench(ds, index_str, runs=1, nprobes=nprobes,
+                                    out_csv=str(tmp_path / "port.csv"), device="cpu", **kw)
+    ref = jax_bench.run_bench(ds_j, index_str, runs=1, nprobes=nprobes,
+                              out_csv=str(tmp_path / "jax.csv"), **kw)
     cols, rows = read_csv(tmp_path / "port.csv")
     cols_j, rows_j = read_csv(tmp_path / "jax.csv")
-    assert cols == cols_j and len(rows) == len(rows_j) == 12 == len(ours) == len(ref)
+    assert cols == cols_j and len(rows) == len(rows_j) == len(ours) == len(ref)
     for r, rj in zip(rows, rows_j):
         for key in ("method", "nprobe", "k", "nq", "ids_size", "overhead_size", "bits_per_id",
                     "recall_1", "dataset", "index", "runs"):
             assert r[key] == rj[key], (r["method"], r["nprobe"], key)
     # ids are lossless: one recall per nprobe
-    assert len({(r["nprobe"], r["recall_1"]) for r in rows}) == 2
+    assert len({(r["nprobe"], r["recall_1"]) for r in rows}) == len(nprobes)
+    return rows, load_index(tmp_path / "index.npz", device="cpu")
+
+
+@pytest.mark.parametrize("index_str", ["IVF8,Flat", "IVF8,PQ4"])
+def test_bench_invlists_equals_jax_on_the_same_index(tmp_path, monkeypatch, index_str):
+    rows, _ = _p1_on_the_same_index(tmp_path, monkeypatch, index_str, (1, 4))
+    assert len(rows) == 12
+
+
+def test_bench_invlists_chunked_lists_equal_jax(tmp_path, monkeypatch):
+    """P1 over one list of TINY's 1,500 ids (IVF1,Flat), past 1.5 x
+    ``AUTO_CHUNK_TARGET``: ``roc-interleaved`` codes it as several lanes
+    (the long-list run, IVF128 over 10^6, at a size the CPU holds), and its
+    sizes and recall equal the JAX driver's."""
+    from vector_db_id_compression_tpu_torch.store.invlists import (AUTO_CHUNK_TARGET,
+                                                                   InterleavedRocInvertedLists)
+
+    rows, index = _p1_on_the_same_index(tmp_path, monkeypatch, "IVF1,Flat", (1,),
+                                        methods=["ref", "roc", "roc-interleaved"])
+    assert [r["method"] for r in rows] == ["ref", "roc", "roc-interleaved"]
+    (n,) = index.invlists.lengths
+    assert n == TINY[2] > 3 * AUTO_CHUNK_TARGET // 2
+    lanes = InterleavedRocInvertedLists(index.invlists, device="cpu").n_lanes
+    assert lanes.tolist() == [-(-n // AUTO_CHUNK_TARGET)] and lanes[0] >= 2
 
 
 def test_bench_invlists_fused_columns(tmp_path):
@@ -193,7 +218,7 @@ def test_search_100m_tiny_equals_jax(tmp_path, monkeypatch, capsys):
     # the JAX driver sets the variable with setdefault; restored after the test
     monkeypatch.setenv("VDBIDC_PQ_DECODE_SCAN", "0")
     argv = ["--ntotal", "20000", "--nlist", "64", "--nq", "50", "--M", "8", "--runs", "1",
-            "--methods", "none", "roc", "elias-fano"]
+            "--methods", *search_100m.METHODS]
     from vector_db_id_compression_tpu_torch.search import ivf
 
     budget = ivf.PQ_DECODE_BUDGET
@@ -203,10 +228,12 @@ def test_search_100m_tiny_equals_jax(tmp_path, monkeypatch, capsys):
     jax_100m.main([*argv, "--out", str(tmp_path / "jax.json")])
     ref = json.loads((tmp_path / "jax.json").read_text())
     assert [list(r) for r in rows] == [list(r) for r in ref]
+    assert [r["method"] for r in rows[::2]] == search_100m.METHODS  # all seven
     by = {}
     for r, rj in zip(rows, ref):
         # the id lists are the generator's in both: equal sizes
-        for key in ("method", "nprobe", "ntotal", "ids_size", "bits_per_id"):
+        for key in ("method", "nprobe", "k", "nq", "ntotal", "nlist", "ids_size",
+                    "bits_per_id"):
             assert r[key] == rj[key], key
         by.setdefault(r["nprobe"], set()).add(r["recall_1"])
     assert all(len(v) == 1 for v in by.values())  # lossless ids

@@ -14,6 +14,10 @@ plus the probe-set overlap of hnsw vs the exact flat coarse (the recall
 proxy: overlapping probe sets => identical downstream candidates) and the
 top-1 agreement. Writes one JSON with build time, per-path timings, and
 overlaps. Each timed call ends in a synchronisation with the device.
+``--dump-probes PATH`` also saves the flat coarse's probes, i64[nq,
+nprobe], as a ``.npy`` for a check against an exact top-nprobe
+(``bench/recorded.py check --quantizer``); the JSON keeps the JAX
+package's keys.
 
     python -m vector_db_id_compression_tpu_torch.bench.quantizer_bench \
         --nlist 262144 --out results/quantizer_262k_h100.json
@@ -33,6 +37,14 @@ from ..device import DEFAULT_DEVICE, resolve
 from ._timing import log, seconds
 
 
+def draw(nlist, d, nq, seed):
+    """(centroids f32[nlist, d], queries f32[nq, d]): the bench's standard
+    normal draws, the JAX package's arrays."""
+    rng = np.random.default_rng(seed)
+    cents = rng.standard_normal((nlist, d)).astype(np.float32)
+    return cents, rng.standard_normal((nq, d)).astype(np.float32)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--nlist", type=int, default=262144)
@@ -46,6 +58,8 @@ def main(argv=None):
     p.add_argument("--skip-hnsw", action="store_true",
                    help="flat-product point only (the 1M-centroid study)")
     p.add_argument("--out", default="results/quantizer_262k_h100.json")
+    p.add_argument("--dump-probes", metavar="PATH",
+                   help="save the flat coarse's probes i64[nq, nprobe] (.npy)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="where the quantizers live and search (default: the card)")
     args = p.parse_args(argv)
@@ -54,9 +68,7 @@ def main(argv=None):
 
     dev = resolve(args.device)
     log(f"device: {dev}")
-    rng = np.random.default_rng(args.seed)
-    cents = rng.standard_normal((args.nlist, args.d)).astype(np.float32)
-    xq = rng.standard_normal((args.nq, args.d)).astype(np.float32)
+    cents, xq = draw(args.nlist, args.d, args.nq, args.seed)
     cents_d = torch.from_numpy(cents).to(dev)
 
     flat = IndexIVF(args.d, args.nlist, device=dev)
@@ -83,6 +95,8 @@ def main(argv=None):
         lambda: flat.coarse_assign(xq, args.nprobe))
     log(f"flat coarse: {t_flat*1e3:.0f} ms mean / {t_flat_min*1e3:.0f} min "
         f"per {args.nq}q top-{args.nprobe}")
+    if args.dump_probes:
+        np.save(args.dump_probes, pf)
 
     rows = dict(nlist=args.nlist, d=args.d, nq=args.nq, nprobe=args.nprobe,
                 hnsw_M=args.M,

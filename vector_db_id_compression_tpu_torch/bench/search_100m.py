@@ -13,13 +13,18 @@ driver sets ``search.ivf.PQ_DECODE_BUDGET`` to 0 while it runs (the JAX
 package's ``VDBIDC_PQ_DECODE_SCAN=0``; at 100M ids the decoded-f32 scan
 would need 12.8 GB of payload, the byte path holds 1.6 GB) and checks that
 the index took it. ID containers under test: none (raw 64-bit), roc,
-elias-fano — deferred decoding, grouped or random-access translation per
-container capability. The oracle is recall PARITY across containers (IDs
-are lossless) plus the redo-averaged t_search, each search synchronised
-with the device.
+elias-fano by default; ``METHODS``, the JAX package's recorded matrix
+(results/search_100m_tpu.json), adds packed-bits, roc-interleaved and the
+two wavelet trees — deferred decoding, grouped or random-access translation
+per container capability. The oracle is recall PARITY across containers
+(IDs are lossless) plus the redo-averaged t_search, each search
+synchronised with the device. Each container's build logs the process's
+peak resident memory.
 
     python -m vector_db_id_compression_tpu_torch.bench.search_100m \
-        --ntotal 100000000 --nlist 65536 --out results/search_100m_h100.json
+        --ntotal 100000000 --nlist 65536 --methods none packed-bits elias-fano \
+        roc roc-interleaved wavelet-tree wavelet-tree-1 \
+        --out results/search_100m_h100.json
 
 It runs on the card unless given ``--device cpu``.
 """
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
 import time
 
 import numpy as np
@@ -36,14 +42,25 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve
 from ._timing import log, seconds
 
+# every id container, in the order of the JAX package's recorded matrix
+METHODS = ["none", "packed-bits", "elias-fano", "roc", "roc-interleaved", "wavelet-tree",
+           "wavelet-tree-1"]
+
+
+def _centers_and_assignment(ntotal, nlist, d, seed):
+    """(the generator, centroids f32[nlist, d], assignment i32[ntotal]): the
+    corpus's first draws."""
+    rng = np.random.default_rng(seed)
+    cent = (rng.standard_normal((nlist, d)) * 4.0).astype(np.float32)
+    assignment = rng.integers(0, nlist, size=ntotal).astype(np.int32)
+    return rng, cent, assignment
+
 
 def build_clustered(ntotal, nlist, d, nq, seed):
     """Generator-assigned clustered corpus, chunked to bound peak memory.
     Returns (centroids f32[nlist, d], assignment i32[ntotal], xb f32[ntotal,
     d], xq f32[nq, d]); the JAX package's arrays."""
-    rng = np.random.default_rng(seed)
-    cent = (rng.standard_normal((nlist, d)) * 4.0).astype(np.float32)
-    assignment = rng.integers(0, nlist, size=ntotal).astype(np.int32)
+    rng, cent, assignment = _centers_and_assignment(ntotal, nlist, d, seed)
     xb = np.empty((ntotal, d), np.float32)
     C = 4_000_000
     for s in range(0, ntotal, C):
@@ -53,6 +70,30 @@ def build_clustered(ntotal, nlist, d, nq, seed):
     qi = rng.integers(0, ntotal, size=nq)
     xq = xb[qi] + 0.05 * rng.standard_normal((nq, d)).astype(np.float32)
     return cent, assignment, xb, xq
+
+
+def fill_lists(assignment, nlist, codes=None, code_size=0):
+    """The inverted lists of ``assignment``, filled one list at a time from
+    the sorted assignment as the JAX package does (the port's InvertedLists
+    appends per list); each vector's ``codes`` row beside its id, or no
+    payload."""
+    from ..store.invlists import InvertedLists
+
+    il = InvertedLists(nlist, code_size)
+    order = np.argsort(assignment, kind="stable")
+    bounds = np.searchsorted(assignment[order], np.arange(nlist + 1))
+    for ln in range(nlist):
+        members = order[bounds[ln]: bounds[ln + 1]]
+        il.add_entries(ln, members.astype(np.uint64),
+                       codes[members].reshape(-1) if codes is not None
+                       else np.empty(0, np.uint8))
+    return il
+
+
+def clustered_lists(ntotal, nlist, d=32, seed=7):
+    """The id lists of ``main``'s index (its defaults' d and seed), without
+    drawing the vectors."""
+    return fill_lists(_centers_and_assignment(ntotal, nlist, d, seed)[2], nlist)
 
 
 def main(argv=None):
@@ -74,7 +115,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from ..search import ivf
-    from ..store.invlists import AVAILABLE_COMPRESSED_IVFS, InvertedLists
+    from ..store.invlists import AVAILABLE_COMPRESSED_IVFS
     from .datasets import knn_l2
 
     dev = resolve(args.device)
@@ -103,16 +144,8 @@ def main(argv=None):
         codes[s:e] = index.pq.encode(xb[s:e]).cpu().numpy()
     log(f"pq encoded in {time.time()-t0:.0f}s")
 
-    # the lists filled one at a time from the sorted assignment, as the JAX
-    # package does (the port's InvertedLists appends per list)
     t0 = time.time()
-    il = InvertedLists(args.nlist, index.code_size)
-    order = np.argsort(assignment, kind="stable")
-    bounds = np.searchsorted(assignment[order], np.arange(args.nlist + 1))
-    for ln in range(args.nlist):
-        members = order[bounds[ln]: bounds[ln + 1]]
-        il.add_entries(ln, members.astype(np.uint64),
-                       codes[members].reshape(-1))
+    il = fill_lists(assignment, args.nlist, codes, index.code_size)
     index.invlists = il
     index.ntotal = args.ntotal
     log(f"invlists built in {time.time()-t0:.0f}s")
@@ -128,8 +161,9 @@ def main(argv=None):
             else:
                 t, container = seconds(lambda: AVAILABLE_COMPRESSED_IVFS[m](il, device=dev),
                                        dev)
+                peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
                 log(f"{m}: compressed in {t:.0f}s, "
-                    f"{container.compressed_ids_size_in_bytes} bytes")
+                    f"{container.compressed_ids_size_in_bytes} bytes; peak RSS {peak:.1f} GiB")
                 ids_size = container.compressed_ids_size_in_bytes
             t, _ = seconds(lambda: index.replace_invlists(container), dev)
             if index._scan_is_float:
