@@ -8,6 +8,9 @@ imports jax, so there it runs without the conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import warnings
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +57,7 @@ from vector_db_id_compression_tpu_torch.store.serialize import (
     save_graph,
     save_invlists,
 )
+from vector_db_id_compression_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +174,43 @@ def test_roc_ivf_search_on_card(cuda):
     for ln in (0, 17, 63):
         assert torch.equal(roc.get_ids(ln).sort().values.cpu(),
                            torch.from_numpy(np.sort(index.invlists.ids[ln]).view(np.int64)))
+
+
+@pytest.mark.parametrize("nq", [1000, 1])
+def test_host_syncs_equal_the_sync_debug_count(cuda, nq):
+    """``host_syncs`` of one search (the program's count, kept while a
+    profiler records) equals the synchronising operations that torch's sync
+    debug mode reports for the same search, for a batch and for one query,
+    over lists in several size buckets."""
+    rng = np.random.default_rng(5)
+    cent = rng.standard_normal((64, 32)).astype(np.float32) * 3.0
+    weight = np.where(np.arange(64) % 4 == 0, 6.0, 1.0)
+    owner = rng.choice(64, size=20000, p=weight / weight.sum())
+    xb = (cent[owner] + rng.standard_normal((20000, 32))).astype(np.float32)
+    xq = torch.from_numpy(xb[rng.integers(0, 20000, nq)]).to(cuda)
+    index = IndexIVF(32, 64, device=cuda)
+    index.train(xb)
+    index.add(xb)
+    index.replace_invlists(RocInvertedLists(index.invlists, device=cuda))
+    assert len(index._scan) >= 2
+    index.search(xq, 20, nprobe=16)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            index.search(xq, 20, nprobe=16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = sorted(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                   if "called a synchronizing CUDA operation" in str(w.message))
+    torch.cuda.synchronize()
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        index.search(xq, 20, nprobe=16)
+    s = profiling.summary(1)
+    assert s.searches == 1 and s.counts["host_syncs"] == len(sites), sites
 
 
 def test_sharded_search_one_nccl_rank_on_card(cuda, tmp_path):

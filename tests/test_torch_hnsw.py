@@ -24,6 +24,8 @@ Inputs are made with numpy from seeds and handed to both packages.
   for byte, and each package loads the other's.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -43,7 +45,7 @@ from vector_db_id_compression_tpu_torch.store import serialize as tser
 from vector_db_id_compression_tpu_torch.store.graph import (CompactBitGraph, EliasFanoGraph, Graph,
                                                            RocBlockGraph, RocGraph)
 from vector_db_id_compression_tpu_torch.store.invlists import RocInvertedLists
-from vector_db_id_compression_tpu_torch.utils import device_trace, throughput
+from vector_db_id_compression_tpu_torch.utils import device_trace
 
 from test_torch_ivf import assert_same_results
 
@@ -320,16 +322,21 @@ def test_load_hnsw_rejects_other_kinds(tmp_path):
 # --------------------------------------------------------------- profiling
 
 
-def test_throughput_and_device_trace(tmp_path):
-    calls = []
-
-    def fn():
-        calls.append(1)
-        return torch.ones(64) * 2
-
-    rate, seconds = throughput(fn, items=64, repeats=3, warmup=2)
-    assert len(calls) == 5 and seconds > 0 and rate == pytest.approx(64 / seconds)
+def test_device_trace_records_program_spans(tmp_path, ivf_data):
+    """``device_trace`` writes the block's Chrome trace, and with it the
+    program's spans: the search's, and the coarse span around the HNSW
+    quantizer's walk."""
+    xb, xq = ivf_data
+    index = IndexIVF(D, NLIST, nprobe=NPROBE, quantizer="hnsw", quantizer_M=8, device="cpu")
+    index.train(xb)
+    index.add(xb)
     with device_trace(tmp_path / "trace") as prof:
         (torch.ones(256, 256) @ torch.ones(256, 256)).sum()
+        index.search(xq, K)
     assert prof is not None
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    trace = tmp_path / "trace" / "trace.json"
+    assert trace.stat().st_size > 0
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    assert {"ivf.search", "ivf.coarse"} <= set(spans)
+    assert spans["ivf.search"]["ts"] <= spans["ivf.coarse"]["ts"]

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..codecs import roc_device as rd
+from ..utils import profiling
 from . import _build
 from ._build import check_launch, load_library
 
@@ -107,24 +108,26 @@ class RocDecoder:
         i64[len(idx), S, n_max] for chained lanes. Raises IndexError for a
         lane outside the table; on CUDA the kernel checks the bounds and
         reports through its error flag, so a call reads the device once."""
-        idx = idx.to(device=self.device, dtype=torch.int64).contiguous()
-        L = self.states.head.shape[0]
-        if self.device.type == "cpu":
-            if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= L):
-                raise IndexError(f"lane indices must lie in [0, {L})")
-            sub = rd.RocStates(*(t[idx] for t in self.states))
-            ids, final = rd.roc_decode_chained(
-                sub, self._len_table[idx], self._prec_table[idx], self.pool,
-                self.n_max, self.n_slices)
-            err = final.err
-        else:
-            ids, err = self._launch(idx)
-        if bool(err.any()):
-            if bool((err == LANE_OUT_OF_RANGE).any()):
-                raise IndexError(f"lane indices must lie in [0, {L})")
-            raise RuntimeError("ROC decode: stack overflow or MT19937 pool "
-                               "exhausted")
-        return ids if self.chained else ids[:, 0]
+        with profiling.span("roc.decode", self.device):
+            idx = idx.to(device=self.device, dtype=torch.int64).contiguous()
+            L = self.states.head.shape[0]
+            if self.device.type == "cpu":
+                if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= L):
+                    raise IndexError(f"lane indices must lie in [0, {L})")
+                sub = rd.RocStates(*(t[idx] for t in self.states))
+                ids, final = rd.roc_decode_chained(
+                    sub, self._len_table[idx], self._prec_table[idx], self.pool,
+                    self.n_max, self.n_slices)
+                err = final.err
+            else:
+                ids, err = self._launch(idx)
+            profiling.count("host_syncs")  # the error check reads the device
+            if bool(err.any()):
+                if bool((err == LANE_OUT_OF_RANGE).any()):
+                    raise IndexError(f"lane indices must lie in [0, {L})")
+                raise RuntimeError("ROC decode: stack overflow or MT19937 pool "
+                                   "exhausted")
+            return ids if self.chained else ids[:, 0]
 
     def layout(self):
         """The kernel's layout for this table: (bytes per symbol, bytes of a

@@ -48,6 +48,7 @@ from ..device import DEFAULT_DEVICE, resolve
 from ..models.qinco import QincoCodec, params_from_leaves, params_to_leaves
 from ..store.invlists import InvertedLists
 from ..store.ragged import bucketize
+from ..utils import profiling
 from .hnsw import HNSW
 from .kmeans import assign, train_kmeans
 from .pq import ProductQuantizer
@@ -232,14 +233,15 @@ class IndexIVF:
         """Top-``nprobe`` list numbers per query, i64[nq, nprobe], through
         the configured quantizer; the HNSW one gives -1 for the slots past
         what its search reached, which callers treat as unprobed."""
-        xq = self._as_device(xq)
-        if self.quantizer == "hnsw":
-            ef = max(self.quantizer_efSearch, nprobe)
-            return self._ensure_quantizer().search(xq, nprobe, ef=ef)[1]
-        c = self.centroids
-        # ||x - c||^2 up to the per-query constant ||x||^2
-        d2 = (c * c).sum(dim=1)[None, :] - 2.0 * (xq @ c.T)
-        return torch.topk(d2, nprobe, dim=1, largest=False, sorted=True).indices
+        with profiling.span("ivf.coarse", self.device):
+            xq = self._as_device(xq)
+            if self.quantizer == "hnsw":
+                ef = max(self.quantizer_efSearch, nprobe)
+                return self._ensure_quantizer().search(xq, nprobe, ef=ef)[1]
+            c = self.centroids
+            # ||x - c||^2 up to the per-query constant ||x||^2
+            d2 = (c * c).sum(dim=1)[None, :] - 2.0 * (xq @ c.T)
+            return torch.topk(d2, nprobe, dim=1, largest=False, sorted=True).indices
 
     def add(self, x):
         if self.centroids is None:
@@ -367,53 +369,56 @@ class IndexIVF:
         (list_no << 32 | offset) labels, -1 for empty slots — the equivalent
         of search_preassigned(store_pairs=true)
         (custom_invlists_impl.cpp:427-428)."""
-        nprobe = nprobe or self.nprobe
-        xq = self._as_device(xq)
-        nq = xq.shape[0]
-        probes = self.coarse_assign(xq, nprobe)
-        # bucket -1 for empty lists and for -1 probes (an HNSW quantizer's
-        # unreached slots), which must not index the table
-        b_of = torch.where(probes >= 0, self._bucket_of[probes.clamp(min=0)], -1)
-        if self._scan_is_float:
-            x2 = (xq * xq).sum(dim=1)
-            width = self.d
-        else:
-            luts = self.pq.compute_luts(xq)
-            x2 = torch.zeros(nq, device=self.device)  # LUT distances are complete
-            width = self.pq.M
-        inf = float("inf")
-        cand_d = torch.full((nq, nprobe, k), inf, device=self.device)
-        cand_l = torch.full((nq, nprobe, k), -1, dtype=torch.int64, device=self.device)
-
-        def emit(q, p, ln, dists, offs):
-            valid = torch.isfinite(dists)
-            cand_d[q, p] = torch.where(valid, dists + x2[q, None], inf)
-            cand_l[q, p] = torch.where(valid, lo_build(ln[:, None], offs), -1)
-
-        for si, sb in enumerate(self._scan):
-            q_arr, p_arr = torch.nonzero(b_of == si, as_tuple=True)
-            lns = probes[q_arr, p_arr]
-            lanes = self._lane_of[lns]
-            # the JAX package's rule: the dense scan pays the whole bucket's
-            # top-k, so only where the pairs cover a quarter of it
-            if self._scan_is_float and 4 * q_arr.numel() >= nq * sb.lengths.numel():
-                dists, offs = _scan_flat_dense(xq, sb, k)
-                emit(q_arr, p_arr, lns, dists[q_arr, lanes], offs[q_arr, lanes])
-                continue
-            chunk = max(1, SCAN_BUDGET // (sb.n_pad * width))
-            for s in range(0, q_arr.numel(), chunk):
-                q, p, ln = q_arr[s:s + chunk], p_arr[s:s + chunk], lns[s:s + chunk]
+        with profiling.span("ivf.positional", self.device):
+            nprobe = nprobe or self.nprobe
+            xq = self._as_device(xq)
+            nq = xq.shape[0]
+            probes = self.coarse_assign(xq, nprobe)
+            # bucket -1 for empty lists and for -1 probes (an HNSW quantizer's
+            # unreached slots), which must not index the table
+            b_of = torch.where(probes >= 0, self._bucket_of[probes.clamp(min=0)], -1)
+            inf = float("inf")
+            cand_d = torch.full((nq, nprobe, k), inf, device=self.device)
+            cand_l = torch.full((nq, nprobe, k), -1, dtype=torch.int64, device=self.device)
+            with profiling.span("ivf.scan", self.device):
                 if self._scan_is_float:
-                    dists, offs = _scan_flat_pairs(xq, sb, q, lanes[s:s + chunk], k)
+                    x2 = (xq * xq).sum(dim=1)
+                    width = self.d
                 else:
-                    dists, offs = _scan_pq_pairs(luts, sb, q, lanes[s:s + chunk], k)
-                emit(q, p, ln, dists, offs)
-        cand_d = cand_d.reshape(nq, nprobe * k)
-        cand_l = cand_l.reshape(nq, nprobe * k)
-        order = torch.argsort(cand_d, dim=1, stable=True)[:, :k]
-        D = torch.gather(cand_d, 1, order)
-        L = torch.gather(cand_l, 1, order)
-        return torch.where(L >= 0, D, inf), L
+                    luts = self.pq.compute_luts(xq)
+                    x2 = torch.zeros(nq, device=self.device)  # LUT distances are complete
+                    width = self.pq.M
+
+                def emit(q, p, ln, dists, offs):
+                    valid = torch.isfinite(dists)
+                    cand_d[q, p] = torch.where(valid, dists + x2[q, None], inf)
+                    cand_l[q, p] = torch.where(valid, lo_build(ln[:, None], offs), -1)
+
+                for si, sb in enumerate(self._scan):
+                    q_arr, p_arr = torch.nonzero(b_of == si, as_tuple=True)
+                    profiling.count("host_syncs")
+                    lns = probes[q_arr, p_arr]
+                    lanes = self._lane_of[lns]
+                    # the JAX package's rule: the dense scan pays the whole bucket's
+                    # top-k, so only where the pairs cover a quarter of it
+                    if self._scan_is_float and 4 * q_arr.numel() >= nq * sb.lengths.numel():
+                        dists, offs = _scan_flat_dense(xq, sb, k)
+                        emit(q_arr, p_arr, lns, dists[q_arr, lanes], offs[q_arr, lanes])
+                        continue
+                    chunk = max(1, SCAN_BUDGET // (sb.n_pad * width))
+                    for s in range(0, q_arr.numel(), chunk):
+                        q, p, ln = q_arr[s:s + chunk], p_arr[s:s + chunk], lns[s:s + chunk]
+                        if self._scan_is_float:
+                            dists, offs = _scan_flat_pairs(xq, sb, q, lanes[s:s + chunk], k)
+                        else:
+                            dists, offs = _scan_pq_pairs(luts, sb, q, lanes[s:s + chunk], k)
+                        emit(q, p, ln, dists, offs)
+            cand_d = cand_d.reshape(nq, nprobe * k)
+            cand_l = cand_l.reshape(nq, nprobe * k)
+            order = torch.argsort(cand_d, dim=1, stable=True)[:, :k]
+            D = torch.gather(cand_d, 1, order)
+            L = torch.gather(cand_l, 1, order)
+            return torch.where(L >= 0, D, inf), L
 
     def search_defer_id_decoding(self, xq, k: int, nprobe: Optional[int] = None,
                                  decode_1by1: Optional[bool] = None, return_codes: int = 0,
@@ -426,13 +431,14 @@ class IndexIVF:
         also return the shortlist's payload codes (2 in the reference means
         include the listno prefix — here also expressed via include_listno).
         Returns (D, I) or (D, I, codes), tensors on the index's device."""
-        D, L = self.search_positional(xq, k, nprobe)
-        if decode_1by1 is None:
-            decode_1by1 = getattr(self.active, "supports_random_access", True)
-        codes = None
-        if return_codes:
-            codes = self._harvest_codes(L, include_listno or return_codes == 2)
-        I = self._translate(L, decode_1by1)
+        with profiling.span("ivf.search", self.device):
+            D, L = self.search_positional(xq, k, nprobe)
+            if decode_1by1 is None:
+                decode_1by1 = getattr(self.active, "supports_random_access", True)
+            codes = None
+            if return_codes:
+                codes = self._harvest_codes(L, include_listno or return_codes == 2)
+            I = self._translate(L, decode_1by1)
         return (D, I) if codes is None else (D, I, codes)
 
     def search(self, xq, k: int, nprobe: Optional[int] = None):
@@ -445,18 +451,21 @@ class IndexIVF:
         """Labels → ids: for compressed containers by one batched random
         access (``decode_1by1`` and the container supports it), else grouped
         per touched list (reference custom_invlists_impl.cpp:477-525)."""
-        flat = labels.reshape(-1)
-        valid = flat >= 0
-        lns, offs = lo_listno(flat[valid]), lo_offset(flat[valid])
-        if self._ids_flat is not None:
-            ids = self._ids_flat[self._list_offsets[lns] + offs]
-        elif decode_1by1 and self.active.supports_random_access:
-            ids = self.active.get_single_ids_batch(lns, offs)
-        else:
-            ids = self.active.decode_select(lns, offs)
-        out = flat.clone()
-        out[valid] = ids
-        return out.reshape(labels.shape)
+        with profiling.span("ivf.translate", self.device):
+            flat = labels.reshape(-1)
+            valid = flat >= 0
+            lns, offs = lo_listno(flat[valid]), lo_offset(flat[valid])
+            profiling.count("host_syncs", 2)  # the two boolean-mask gathers
+            if self._ids_flat is not None:
+                ids = self._ids_flat[self._list_offsets[lns] + offs]
+            elif decode_1by1 and self.active.supports_random_access:
+                ids = self.active.get_single_ids_batch(lns, offs)
+            else:
+                ids = self.active.decode_select(lns, offs)
+            out = flat.clone()
+            out[valid] = ids
+            profiling.count("host_syncs")
+            return out.reshape(labels.shape)
 
     def _harvest_codes(self, labels: torch.Tensor, include_listno: bool) -> torch.Tensor:
         """Shortlist payload codes u8[nq, k, cs (+ listno bytes)], 0xff for

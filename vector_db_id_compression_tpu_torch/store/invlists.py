@@ -52,6 +52,7 @@ from ..core.bits import directory_entries
 from ..device import DEFAULT_DEVICE, resolve
 from ..ops.roc_decode import RocDecoder
 from ..ops.roc_encode import RocEncoder
+from ..utils import profiling
 from .ragged import pad_lists
 
 
@@ -130,6 +131,7 @@ class CompressedInvertedLists:
         if list_nos.numel() == 0:
             return torch.zeros(0, dtype=torch.int64, device=self.device)
         touched, inv = torch.unique(list_nos, return_inverse=True)
+        profiling.count("host_syncs")
         decoded, _ = self.decode_lists(touched)
         return decoded[inv, offsets]
 
@@ -201,6 +203,7 @@ class RocInvertedLists(CompressedInvertedLists):
         list_nos = torch.as_tensor(list_nos, dtype=torch.int64, device=self.device)
         lens = self.decoder.lengths[list_nos].to(torch.int64)
         max_len = max(int(lens.max()) if lens.numel() else 0, 1)
+        profiling.count("host_syncs")
         return self.decoder.decode_lanes(list_nos)[:, :max_len], lens
 
 
@@ -347,6 +350,8 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         counts = self._n_lanes[list_nos]
         rows = torch.repeat_interleave(torch.arange(list_nos.numel(), device=self.device),
                                        counts)
+        # it reads the output's length and checks that no count is negative
+        profiling.count("host_syncs", 2)
         first = torch.cumsum(counts, 0) - counts
         lanes = (self._lane_start[list_nos][rows]
                  + torch.arange(rows.numel(), device=self.device) - first[rows])
@@ -359,6 +364,7 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         list_nos = torch.as_tensor(list_nos, dtype=torch.int64, device=self.device)
         lens = self._list_len[list_nos]
         max_len = max(int(lens.max()) if lens.numel() else 0, 1)
+        profiling.count("host_syncs")
         rows, lanes, _ = self._lanes_of(list_nos)
         ids = self.decoder.decode_lanes(lanes) + self._lane_lo[lanes][:, None]
         j = torch.arange(ids.shape[1], device=self.device)[None, :]
@@ -366,6 +372,7 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         cols = self._lane_first[lanes][:, None] + j
         out = torch.zeros((list_nos.numel(), max_len), dtype=torch.int64, device=self.device)
         out[rows[:, None].expand_as(cols)[valid], cols[valid]] = ids[valid]
+        profiling.count("host_syncs", 3)  # the three boolean-mask gathers
         return out, lens
 
     def decode_select(self, list_nos, offsets):
@@ -380,6 +387,7 @@ class InterleavedRocInvertedLists(CompressedInvertedLists):
         if list_nos.numel() == 0:
             return torch.zeros(0, dtype=torch.int64, device=self.device)
         touched, inv = torch.unique(list_nos, return_inverse=True)
+        profiling.count("host_syncs")
         _, lanes, first = self._lanes_of(touched)
         decoded = self.decoder.decode_lanes(lanes)
         n = self._list_len[list_nos]
@@ -416,6 +424,7 @@ class PackedBitsInvertedLists(CompressedInvertedLists):
         list_nos = torch.as_tensor(list_nos, dtype=torch.int64, device=self.device)
         lens = self.packed.lengths[list_nos]
         max_len = max(int(lens.max()) if lens.numel() else 0, 1)
+        profiling.count("host_syncs")
         sub = self.packed._replace(words=self.packed.words[list_nos], lengths=lens)
         return unpack_all(sub, max_len), lens
 
@@ -452,6 +461,7 @@ class EliasFanoInvertedLists(CompressedInvertedLists):
         list_nos = torch.as_tensor(list_nos, dtype=torch.int64, device=self.device)
         lens = self.ef.m[list_nos]
         max_len = max(int(lens.max()) if lens.numel() else 0, 1)
+        profiling.count("host_syncs")
         return ef_decode_all(self.ef.rows(list_nos), max_len), lens
 
     def get_single_ids_batch(self, list_nos, offsets):
@@ -519,6 +529,7 @@ class WaveletTreeInvertedLists(CompressedInvertedLists):
         list_nos = torch.as_tensor(list_nos, dtype=torch.int64, device=self.device)
         lens = torch.from_numpy(self._lengths).to(self.device)[list_nos]
         max_len = max(int(lens.max()) if lens.numel() else 0, 1)
+        profiling.count("host_syncs")
         offs = torch.arange(max_len, device=self.device)[None, :]
         sym = list_nos[:, None].expand(-1, max_len)
         vals = self._select(sym, torch.minimum(offs, (lens[:, None] - 1).clamp(min=0)).expand_as(sym))
