@@ -34,9 +34,10 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               global-memory layout; bit-equal or the run fails
   4. main     train, add, search uncompressed, swap in the ROC container,
               search again; the ROC search must return the uncompressed
-              search's rows (ids are lossless); both kernels must have been
-              launched by that path; the full-probe search (nprobe 1024,
-              every size bucket through the dense all-pairs scan) must equal
+              search's rows (ids are lossless); both ROC kernels must have
+              been launched by that path, and the grouped float scan kernel
+              (K5) once a size bucket a search; the full-probe search
+              (nprobe 1024, every size bucket through K5) must equal
               brute force on the 1000 queries up to ties; two more k-means
               trainings at the index's shape must give its centroids bit
               for bit (the sum per cluster is in a fixed order); then bits/id and
@@ -87,8 +88,10 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               recovered) and the size psum (the host sum), and ShardedIVF
               over main's index with the raw lists and each of the six
               containers and over pq's index with RocInvertedLists (decoded
-              and LUT scans), each equal to the unsharded search under the
-              near-tie rule (D within 1e-5 relative), with the four stages'
+              and LUT scans), each equal to the unsharded search through the
+              same per-bucket torch scan under the near-tie rule (D within
+              1e-5 relative), and that search equal to the served one (K5)
+              within SCAN_DIST_ERR of 2 ||x||^2, with the four stages'
               times; then four gloo ranks sharing the card, each its own
               process, loading the flat index and its ROC container from
               files, encoding its quarter of the lists and searching: the
@@ -171,6 +174,11 @@ NCCL rank, then as four gloo ranks sharing the card. Phases:
               65,536 lists, the lists one search touches), bit-equal
               or the run fails; the native host codec over the PQ index's
               1024 lists, equal to the kernels' streams or the run fails;
+              K5 over [main]'s probes (and over every list, nprobe 1024)
+              against its plain version, each distance within SCAN_DIST_ERR
+              of 2 ||x||^2 and labels under the near-tie rule or the run
+              fails, timed beside the grouping, the plain version and the
+              per-bucket torch scan it replaces;
               then one line per kernel with its time, its bound, its chain
               bound (the longest lane's steps times the chain probe's step)
               and its launches per search or build
@@ -186,7 +194,9 @@ behind a spin of the card, as for the probes), for the probes
 ``latency_bound_ms`` (their dependent steps times a step's least latency) and
 ``call_ms`` (the wrapper's call with its input checks), for the ROC kernels
 ``chain_bound_ms``, ``launches_by_phase`` (``bench``: the experiment
-drivers' launches) and
+drivers' launches; for K5 too), for K5 ``dist_err`` (against the plain
+version, relative to 2 ||x||^2), ``group_ms``, ``torch_route_ms``,
+``positional_ms`` and ``full_coverage`` (the same at nprobe 1024) and
 ``library_ms`` (null: no single PyTorch call
 decodes or encodes an ROC stream); the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside a checkout of the
@@ -267,6 +277,13 @@ SHARED_LOAD_CYCLES = 29
 # spin cycles (torch.cuda._sleep, about 1 ms) queued before a kernel's timed
 # launches, so that the host's launch time hides behind it
 SPIN_CYCLES = 2_000_000
+# the grouped float scan (K5) against float32 torch computations of the same
+# distances (its plain version, the per-bucket torch scan): each distance
+# within this share of its query's 2 ||x||^2, the benchmark's dist_err
+# measure (idbench/check.py; its limit 1.5e-5). An absolute or relative
+# tolerance would read float32 rounding where ||x||^2 + ||y||^2 - 2 <x, y>
+# cancels, at queries next to database rows
+SCAN_DIST_ERR = 1e-6
 
 
 def log(msg: str) -> None:
@@ -640,6 +657,7 @@ def make_data(seed: int):
 
 
 def phase_main(xt, xb, xq):
+    from vector_db_id_compression_tpu_torch.ops import ivf_scan
     from vector_db_id_compression_tpu_torch.ops.roc_decode import RocDecoder
     from vector_db_id_compression_tpu_torch.ops.roc_encode import RocEncoder
     from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
@@ -649,6 +667,7 @@ def phase_main(xt, xb, xq):
     # launch counts are read from this window only
     RocEncoder.launches = 0
     RocDecoder.launches = 0
+    ivf_scan.launches = 0
     index = IndexIVF(d=D, nlist=NLIST, storage="flat", device="cuda")
     t_train, _ = cuda_ms(lambda: index.train(xt))
     t_add, _ = cuda_ms(lambda: index.add(xb))
@@ -657,7 +676,8 @@ def phase_main(xt, xb, xq):
     index.replace_invlists(roc)
     D1, I1 = index.search_defer_id_decoding(xq, k=K, nprobe=NPROBE)
     torch.cuda.synchronize()
-    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches}
+    launches = {"roc_encode": RocEncoder.launches, "roc_decode": RocDecoder.launches,
+                "ivf_flat_scan": ivf_scan.launches}
     # ----
 
     if I1.shape != (NQ, K) or D1.shape != (NQ, K):
@@ -669,6 +689,10 @@ def phase_main(xt, xb, xq):
     torch.testing.assert_close(D1, D0, rtol=1e-4, atol=1e-3)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    if launches["ivf_flat_scan"] != 2 * len(index._scan):
+        raise AssertionError(f"the grouped scan kernel: {launches['ivf_flat_scan']} launches in "
+                             f"two searches over {len(index._scan)} float buckets (one a bucket "
+                             f"a search)")
     bits_per_id = roc.compressed_ids_size_in_bytes * 8 / index.ntotal
     lengths = index.invlists.lengths
     log(f"[main] IVF{NLIST},Flat over {index.ntotal} ids (list lengths "
@@ -686,20 +710,22 @@ def phase_main(xt, xb, xq):
     D_bf, I_bf = torch.topk(d2, K + 1, dim=1, largest=False)
     recall = float((I1[:, :, None] == I_bf[:, None, :K]).any(2).float().mean())
     I_bf = I_bf[:, :K]
-    # full probe: every bucket takes the dense scan, and the search is exact
+    # full probe: every bucket takes the grouped scan kernel, and the search
+    # is exact
     paths, (Df, If) = scan_paths(lambda: index.search(xq, K, nprobe=NLIST))
     torch.testing.assert_close(Df, D_bf[:, :K], rtol=1e-4, atol=1e-3)
     tie = (D_bf[:, K] - D_bf[:, K - 1]).abs() <= 1e-3 + 1e-4 * D_bf[:, K].abs()
     same = (If.sort(1).values == I_bf.sort(1).values).all(1)
     if not bool((same | tie).all()):
         raise AssertionError("full-probe search differs from brute force")
-    if paths["pairs"] or len(paths["dense"]) != len(index._scan):
-        raise AssertionError(f"full probe: not every bucket took the dense scan: {paths}")
+    if paths["pairs"] or paths["dense"] or paths["grouped"] != len(index._scan):
+        raise AssertionError(f"full probe: not every bucket took the grouped scan: {paths}")
     full_ms = median_ms(lambda: index.search(xq, K, nprobe=NLIST))
     log(f"[main] full probe (nprobe {NLIST}) == brute force on {NQ} queries (D within rtol "
         f"1e-4 atol 1e-3, sorted I rows equal or a tie at slot {K}; rows with a tie "
-        f"{int(tie.sum())}, rows that differ {int((~same).sum())}); buckets by scan: dense "
-        f"{len(paths['dense'])}, pairs {len(paths['pairs'])} of {len(index._scan)}; recall@{K} "
+        f"{int(tie.sum())}, rows that differ {int((~same).sum())}); buckets by scan: grouped "
+        f"{paths['grouped']}, dense {len(paths['dense'])}, pairs {len(paths['pairs'])} of "
+        f"{len(index._scan)}; recall@{K} "
         f"of nprobe={NPROBE} vs brute force: {recall:.4f}")
     del xb_d, d2
 
@@ -712,7 +738,7 @@ def phase_main(xt, xb, xq):
         "= positional + translate: " + "; ".join(
             f"{name} {t[0]:.2f} = {t[1]:.2f} + {t[2]:.2f} ({t[3]} touched lists)"
             for name, t in times.items())
-        + f"; full probe (nprobe {NLIST}, ROC, dense scan) {full_ms:.2f}")
+        + f"; full probe (nprobe {NLIST}, ROC, grouped scan) {full_ms:.2f}")
     return index, roc, launches, I_bf[:, :K]
 
 
@@ -736,10 +762,13 @@ def kmeans_reproducible(xt, centroids) -> None:
 
 def scan_paths(fn):
     """(the scan buckets, by identity, that ``fn``'s searches sent through
-    the dense and through the pair scan of ``search/ivf.py``, fn's result)."""
+    the dense and through the pair scan of ``search/ivf.py``, and the
+    launches of the grouped scan kernel, fn's result)."""
+    from vector_db_id_compression_tpu_torch.ops import ivf_scan
     from vector_db_id_compression_tpu_torch.search import ivf
 
     seen = {"dense": set(), "pairs": set()}
+    before = ivf_scan.launches
     dense, pairs = ivf._scan_flat_dense, ivf._scan_flat_pairs
 
     def dense_spy(xq, sb, k):
@@ -755,6 +784,7 @@ def scan_paths(fn):
         out = fn()
     finally:
         ivf._scan_flat_dense, ivf._scan_flat_pairs = dense, pairs
+    seen["grouped"] = ivf_scan.launches - before
     return seen, out
 
 
@@ -1292,6 +1322,17 @@ def stage_times(sh, xq_d, timer=median_ms) -> dict:
             "search": timer(lambda: sh.search(xq_d, K, NPROBE))}
 
 
+def torch_route_search(idx, xq, k: int, nprobe: int):
+    """``idx.search_defer_id_decoding(xq, k, nprobe)`` with the scan that
+    ``ShardedIVF`` runs, the per-bucket torch scan
+    (``IndexIVF._scan_pairs``), where the card's search takes K5 for the
+    float buckets: (D, I)."""
+    from vector_db_id_compression_tpu_torch.search import ivf
+
+    D, L = ivf._merge_candidates(*idx._scan_pairs(xq, idx.coarse_assign(xq, nprobe), k), k)
+    return D, idx._translate(L, getattr(idx.active, "supports_random_access", True))
+
+
 def phase_parallel(index, roc, codecs, pq_index, pq_roc, xq):
     """``parallel/`` on torch.distributed over the [main] and [pq] indexes.
     One NCCL rank on the card (multihost.initialize, world size 1): the
@@ -1300,7 +1341,11 @@ def phase_parallel(index, roc, codecs, pq_index, pq_roc, xq):
     host sum), and ShardedIVF over IVF1024,Flat with the raw lists and every
     container of AVAILABLE_COMPRESSED_IVFS and over IVF1024,PQ16 with
     RocInvertedLists through the decoded and the LUT scans, each equal to
-    the unsharded search under the near-tie rule (D within 1e-5 relative);
+    the unsharded search through the same per-bucket torch scan
+    (``torch_route_search``; ShardedIVF does not take the grouped scan
+    kernel) under the near-tie rule (D within 1e-5 relative), and that
+    search equal to the unsharded search as served (K5 for the float
+    buckets) under the near-tie rule at ``SCAN_DIST_ERR`` of 2 ||x||^2;
     then four gloo ranks on the same card (``parallel_rank``), each loading
     the flat index and its ROC container from files, encoding its quarter
     and searching: states bit-equal to the one rank's, I and D under the
@@ -1332,11 +1377,16 @@ def phase_parallel(index, roc, codecs, pq_index, pq_roc, xq):
     budget = ivf.PQ_DECODE_BUDGET
     cases = [("flat " + name, index, c, budget) for name, c in flat.items()]
     cases += [("PQ roc decoded", pq_index, pq_roc, budget), ("PQ roc LUT", pq_index, pq_roc, 0)]
-    ref, ref_ms = {}, {}
+    ref, ref_ms, served_differ = {}, {}, {}
+    scale = 2 * (xq_d * xq_d).sum(dim=1, keepdim=True)
     for name, idx, c, scan_budget in cases:
         ivf.PQ_DECODE_BUDGET = scan_budget
         idx.replace_invlists(c)
-        ref[name] = idx.search_defer_id_decoding(xq_d, k=K, nprobe=NPROBE)
+        ref[name] = torch_route_search(idx, xq_d, K, NPROBE)
+        D_s, I_s = idx.search_defer_id_decoding(xq_d, k=K, nprobe=NPROBE)
+        served_differ[name] = assert_near_ties(
+            f"[parallel] the unsharded search against its torch route, {name}", D_s / scale,
+            I_s, ref[name][0] / scale, ref[name][1], 0.0, SCAN_DIST_ERR)
         ref_ms[name] = median_ms(lambda: idx.search_defer_id_decoding(xq_d, k=K, nprobe=NPROBE))
     ivf.PQ_DECODE_BUDGET = budget
     index.replace_invlists(active[0])
@@ -1403,8 +1453,11 @@ def phase_parallel(index, roc, codecs, pq_index, pq_roc, xq):
             f"stack_len, mt_ctr; {t_enc * 1e3:.1f} ms host clock), sharded_roc_decode recovers "
             f"every list ({t_dec * 1e3:.1f} ms), sharded_size_accounting {int(nbytes)} bytes, "
             f"{int(nids)} ids == the host sum; ShardedIVF == the unsharded search on {NQ} "
-            f"queries, k={K}, nprobe={NPROBE} (near-tie rule, D rtol 1e-5) for every case, "
-            f"labels at near ties {differ}; launches {launches}")
+            f"queries, k={K}, nprobe={NPROBE} (near-tie rule, D rtol 1e-5; the unsharded "
+            f"search through the per-bucket torch scan) for every case, labels at near ties "
+            f"{differ}; that search == the served unsharded search (near-tie rule, D within "
+            f"{SCAN_DIST_ERR} of 2||x||^2), labels at near ties {served_differ}; launches "
+            f"{launches}")
         for name, *_ in cases:
             t = stages[name]
             log(f"[parallel] {name}: build {build_ms[name] * 1e3:.1f} ms (host clock); "
@@ -2652,6 +2705,118 @@ def time_kernels(index, roc, launches, xq, chain):
     ]
 
 
+def scan_bound(index, probes, k: int):
+    """(bound_ms, bound_by, bytes, operations) of K5 over ``probes``: each
+    probed list's true rows read once (4 d + 4 bytes a row), the slots'
+    queries (4 d bytes each) and [slots, k] outputs at 12 bytes, against
+    slots x rows x 2 d float32 operations."""
+    lengths = torch.from_numpy(index.active.lengths).to(probes.device)
+    flat = probes.reshape(-1)
+    flat = flat[flat >= 0]
+    slots_a_list = torch.bincount(flat, minlength=index.nlist)
+    probed = slots_a_list > 0
+    d = index.d
+    nbytes = (int(lengths[probed].sum()) * (4 * d + 4) + flat.numel() * 4 * d
+              + probes.numel() * k * 12)
+    ops = float((slots_a_list * lengths).sum()) * 2 * d
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def scan_kernel_vs_plain(index, xq, nprobe: int, k: int) -> dict:
+    """K5 (``ops/ivf_scan.py`` ``scan_flat_grouped``, one launch a float
+    bucket) over one batch's probes against its plain version on the card:
+    the same +inf entries, each distance within ``SCAN_DIST_ERR`` of 2
+    ||x||^2 of the plain one, labels equal under the near-tie rule at that
+    tolerance, or the run fails. Then the kernel alone (``kernel_ms``), the
+    wrapper's call, the slot grouping, the plain version, the per-bucket
+    torch scan it replaces (``IndexIVF._scan_pairs``) and the positional
+    search by either route, beside K5's bound (``scan_bound``)."""
+    from vector_db_id_compression_tpu_torch.ops import ivf_scan
+    from vector_db_id_compression_tpu_torch.search import ivf
+
+    nq = xq.shape[0]
+    probes = index.coarse_assign(xq, nprobe)
+    x2 = (xq * xq).sum(dim=1)
+    S = probes.numel()
+
+    def group():
+        return ivf_scan.group_slots(probes, index._bucket_of)
+
+    order, starts = group()
+
+    def scan(fn, out):
+        for sb in index._scan:
+            fn(xq, x2, sb.payload, sb.norms, sb.lengths, sb.lists, order, starts, nprobe, k,
+               *out)
+        return out
+
+    cand = index._candidates(nq, nprobe, k)
+    before = ivf_scan.launches
+    scan(ivf_scan.scan_flat_grouped, cand)
+    torch.cuda.synchronize()
+    launches = ivf_scan.launches - before
+    if launches != len(index._scan):
+        raise AssertionError(f"K5: {launches} launches over {len(index._scan)} float buckets")
+    plain_ms, want = cuda_ms(lambda: scan(ivf_scan.scan_flat_grouped_plain,
+                                          index._candidates(nq, nprobe, k)))
+    got_d, got_l = (t.reshape(S, k) for t in cand)
+    want_d, want_l = (t.reshape(S, k) for t in want)
+    scale = 2 * x2.repeat_interleave(nprobe)[:, None]
+    finite = torch.isfinite(want_d)
+    if not torch.equal(torch.isfinite(got_d), finite):
+        raise AssertionError("K5 against its plain version: +inf entries differ")
+    diff = (got_d - want_d).abs()[finite]
+    max_err = float(diff.max()) if finite.any() else 0.0
+    dist_err = float((diff / scale.expand_as(got_d)[finite]).max()) if finite.any() else 0.0
+    labels_differ = assert_near_ties(
+        f"K5 against its plain version (nprobe {nprobe}, k {k})", got_d / scale, got_l,
+        want_d / scale, want_l, 0.0, SCAN_DIST_ERR)
+    bound_ms, bound_by, nbytes, ops = scan_bound(index, probes, k)
+    ms = kernel_ms(lambda: scan(ivf_scan.scan_flat_grouped, cand))
+
+    def torch_positional():
+        return ivf._merge_candidates(*index._scan_pairs(xq, index.coarse_assign(xq, nprobe), k),
+                                     k)
+
+    return {"nq": nq, "nprobe": nprobe, "k": k, "slots": S,
+            "buckets": [[int(sb.lengths.numel()), sb.n_pad] for sb in index._scan],
+            "launches_a_search": launches, "ms": ms,
+            "call_ms": median_ms(lambda: scan(ivf_scan.scan_flat_grouped, cand)),
+            "group_ms": median_ms(group), "plain_ms": plain_ms, "max_abs_err": max_err,
+            "dist_err": dist_err, "labels_differ": labels_differ,
+            "torch_route_ms": median_ms(lambda: index._scan_pairs(xq, probes, k)),
+            "positional_ms": {
+                "grouped": median_ms(lambda: index.search_positional(xq, k, nprobe)),
+                "torch": median_ms(torch_positional)},
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+
+
+def time_scan_kernel(index, xq):
+    """K5 beside its plain version on the card at the main path's shapes
+    (the 1000 queries at nprobe 16, k 10), and at full coverage (nprobe =
+    nlist, where the torch route scans every bucket densely) as one more
+    field. Returns K5's JSON entry; its launches are set by ``main``."""
+    xq = torch.from_numpy(xq).cuda()
+    at = scan_kernel_vs_plain(index, xq, NPROBE, K)
+    full = scan_kernel_vs_plain(index, xq, NLIST, K)
+    for what, r in (("[main]'s probes", at), ("full coverage", full)):
+        log(f"[timing] ivf_flat_scan at {what} ({r['nq']} queries, nprobe {r['nprobe']}, k "
+            f"{r['k']}, buckets [lanes, n_pad] {r['buckets']}): kernel == plain (dist_err "
+            f"{r['dist_err']:.3g} of 2||x||^2, labels at near ties {r['labels_differ']}); "
+            f"kernel {r['ms']:.4f} ms (launches queued behind a spin), call {r['call_ms']:.4f}, "
+            f"grouping {r['group_ms']:.4f}, plain {r['plain_ms']:.1f}, per-bucket torch scan "
+            f"{r['torch_route_ms']:.4f} ms; positional search {r['positional_ms']}; bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ms'] / r['bound_ms']:.2f}x)")
+    return kernel_entry(
+        "ivf_flat_scan", "ivf_flat_scan.cu",
+        "vector_db_id_compression_tpu/search/ivf.py:84 _scan_flat_bucket (XLA; no Pallas "
+        "kernel)", 0, at["max_abs_err"], at["ms"], at["plain_ms"],
+        (at["bound_ms"], at["bound_by"]), ms_timed="launch",
+        launches_per_search=at["launches_a_search"], call_ms=at["call_ms"],
+        dist_err=at["dist_err"], group_ms=at["group_ms"], torch_route_ms=at["torch_route_ms"],
+        positional_ms=at["positional_ms"], full_coverage=full)
+
+
 def time_pq_kernels(index, roc, il, chain):
     """Both ROC kernels beside their plain versions over every chunk entry
     of the PQ index's interleaved container (held also against the
@@ -2845,12 +3010,17 @@ def main() -> None:
 
     if Path(port.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
         sys.exit("chip_smoke: run from a checkout that holds vector_db_id_compression_tpu_torch")
-    # host-clock seconds of each phase, for the run's time budget
+    from vector_db_id_compression_tpu_torch.ops import ivf_scan
+
+    # host-clock seconds of each phase, for the run's time budget, and the
+    # grouped scan kernel's launches in each
     spent, clock = {}, [time.perf_counter()]
+    scan_launches, scan_mark = {}, [0]
 
     def lap(phase: str) -> None:
         now = time.perf_counter()
         spent[phase], clock[0] = round(now - clock[0], 1), now
+        scan_launches[phase], scan_mark[0] = ivf_scan.launches - scan_mark[0], ivf_scan.launches
 
     phase_build()
     phase_kernels(args.seed)
@@ -2899,7 +3069,8 @@ def main() -> None:
     per_hnsw = time_hnsw_kernels(hnsw_index, hnsw_roc, level0, hnsw_nodes, hnsw_launches,
                                  hnsw_per_unit, chain)
     per_qinco = time_qinco_kernels(qinco_index, qinco_roc, xq)
-    kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes
+    scan = time_scan_kernel(index, xq)
+    kernels = time_kernels(index, roc, main_launches, xq, chain) + chained + probes + [scan]
     lap("probes, chain, timing")
     log(f"[time] host-clock s by phase: {spent}; in all {sum(spent.values()):.1f} s")
     # a kernel that several paths run counts its launches in each, and its
@@ -2917,6 +3088,12 @@ def main() -> None:
         name_ = entry["name"]
         for extra in (per_node[name_], per_chunk[name_], per_qinco[name_]):
             entry.update(extra, max_abs_err=max(entry["max_abs_err"], extra["max_abs_err"]))
+    # K5: [main]'s window, and every other path's phase that searched on the
+    # card (the timing's own launches left out)
+    scan["launches_by_phase"] = {"main": main_launches["ivf_flat_scan"], **{
+        ph: n for ph, n in scan_launches.items()
+        if ph not in ("main", "probes, chain, timing") and n}}
+    scan["launches"] = sum(scan["launches_by_phase"].values())
     entries = {e["name"]: e for e in kernels}
     entries["roc_decode"]["graph_launches_per_search"] = per_unit["roc_decode"]
     for e in kernels:

@@ -19,7 +19,8 @@ import torch.distributed as dist
 from vector_db_id_compression_tpu_torch.codecs import roc_device as td
 from vector_db_id_compression_tpu_torch.codecs.roc import precision_for_max_id_safe
 from vector_db_id_compression_tpu_torch.models.qinco import QincoCodec
-from vector_db_id_compression_tpu_torch.ops._build import SHARED_BYTES_PER_BLOCK
+from vector_db_id_compression_tpu_torch.ops import ivf_scan
+from vector_db_id_compression_tpu_torch.ops._build import SHARED_BYTES_PER_BLOCK, load_library
 from vector_db_id_compression_tpu_torch.ops.probes import (
     ProbeChain,
     ProbeDecodeStep,
@@ -181,7 +182,9 @@ def test_host_syncs_equal_the_sync_debug_count(cuda, nq):
     """``host_syncs`` of one search (the program's count, kept while a
     profiler records) equals the synchronising operations that torch's sync
     debug mode reports for the same search, for a batch and for one query,
-    over lists in several size buckets."""
+    over lists in several size buckets: 6, since the grouped scan (K5)
+    takes the float buckets without a sync; ``scan_grouped_slots`` counts
+    every slot."""
     rng = np.random.default_rng(5)
     cent = rng.standard_normal((64, 32)).astype(np.float32) * 3.0
     weight = np.where(np.arange(64) % 4 == 0, 6.0, 1.0)
@@ -210,7 +213,8 @@ def test_host_syncs_equal_the_sync_debug_count(cuda, nq):
                                             torch.profiler.ProfilerActivity.CUDA]):
         index.search(xq, 20, nprobe=16)
     s = profiling.summary(1)
-    assert s.searches == 1 and s.counts["host_syncs"] == len(sites), sites
+    assert s.searches == 1 and s.counts["host_syncs"] == len(sites) == 6, sites
+    assert s.counts["scan_grouped_slots"] == nq * 16
 
 
 def test_sharded_search_one_nccl_rank_on_card(cuda, tmp_path):
@@ -290,9 +294,10 @@ def test_qinco_on_card(cuda):
 
 
 def test_dense_scan_on_card(cuda, monkeypatch):
-    """Full probe on the card (every bucket dense, in slabs of a few lists
-    under a lowered budget) equals the same index's search on the CPU under
-    the near-tie rule."""
+    """Full probe on the card equals the same index's search on the CPU
+    (every bucket dense there) under the near-tie rule. On the card every
+    float bucket takes the grouped scan kernel (K5) whatever its coverage,
+    so the budget, lowered to slabs of a few lists, leaves it unmoved."""
     rng = np.random.default_rng(10)
     xb = rng.standard_normal((20000, 32)).astype(np.float32)
     xq = rng.standard_normal((64, 32)).astype(np.float32)
@@ -308,6 +313,156 @@ def test_dense_scan_on_card(cuda, monkeypatch):
         D1, I1 = card.search(xq, 10, nprobe=64)
         torch.testing.assert_close(D1.cpu(), D0, rtol=1e-4, atol=1e-3)
         assert bool(((I1.cpu() == I0) | torch.isclose(D1.cpu(), D0, rtol=1e-4, atol=1e-3)).all())
+
+
+def assert_rows_near_ties(D_got, L_got, D_ref, L_ref, rtol=1e-5, atol=1e-4):
+    """D within rtol/atol (+inf where the reference's is), and a label may
+    differ from the reference's only where the reference's distance ties
+    (within the tolerance) with its neighbour in the row, or at the last
+    slot with the other's distance."""
+    D_got, L_got, D_ref, L_ref = (t.cpu() for t in (D_got, L_got, D_ref, L_ref))
+    torch.testing.assert_close(D_got, D_ref, rtol=rtol, atol=atol)
+
+    def close(a, b):
+        return abs(a - b) <= atol + rtol * abs(b)
+
+    k = L_ref.shape[1]
+    for i, j in torch.nonzero(L_got != L_ref).tolist():
+        d = D_ref[i]
+        right = d[j + 1] if j + 1 < k else D_got[i, j]
+        assert (j > 0 and close(d[j], d[j - 1])) or close(d[j], right), (
+            f"row {i} slot {j}: label differs without a near tie")
+
+
+def flat_buckets(d, lengths, seed):
+    """A CPU flat index's scan buckets over hand-made lists of ``lengths``
+    rows (0 for an empty list, in no bucket)."""
+    rng = np.random.default_rng(seed)
+    il = InvertedLists(len(lengths), 4 * d)
+    for ln, n in enumerate(lengths):
+        rows = (rng.standard_normal((n, d)) + 3 * rng.standard_normal(d)).astype(np.float32)
+        il.add_entries(ln, np.arange(n, dtype=np.uint64), rows.view(np.uint8).reshape(-1))
+    index = IndexIVF(d, len(lengths), device="cpu")
+    index.replace_invlists(il)
+    return index
+
+
+@pytest.mark.parametrize("nq", [1, 1000])
+@pytest.mark.parametrize("k", [1, 20, 100, "beyond"])
+@pytest.mark.parametrize("d", [32, 33, 100, 128, 200])
+def test_grouped_scan_kernel_matches_plain(cuda, d, k, nq):
+    """K5 against its plain version over 48 lists of 0 to 700 rows (up to
+    120 where k is one beyond the longest list) in several size buckets,
+    probed by nq queries at nprobe 12 with a fifth of the probes -1, then
+    at nprobe = nlist: the same distances within rtol 1e-5 / atol 1e-4,
+    labels equal under the near-tie rule, rows of other buckets' slots left
+    as they were, one launch a bucket. d 33 takes the 4-byte copies, 200
+    two chunks a row."""
+    longest = 120 if k == "beyond" else 700
+    rng = np.random.default_rng(d + nq)
+    lengths = np.concatenate([[0, 0, 0, 1, 1, 2, 3, longest],
+                              np.geomspace(4, longest, 40).astype(int)])
+    k = longest + 1 if k == "beyond" else k
+    index = flat_buckets(d, lengths, seed=d)
+    assert len(index._scan) >= 3
+    xq = torch.from_numpy((rng.standard_normal((nq, d)) * 2).astype(np.float32))
+    x2 = (xq * xq).sum(dim=1)
+    nlist = len(lengths)
+    wide = np.stack([rng.permutation(nlist)[:12] for _ in range(nq)])
+    wide[rng.random(wide.shape) < 0.2] = -1
+    for probes in (torch.from_numpy(wide), torch.arange(nlist).repeat(nq, 1)):
+        nprobe = probes.shape[1]
+        order, starts = ivf_scan.group_slots(probes, index._bucket_of)
+        order_c, starts_c = ivf_scan.group_slots(probes.to(cuda), index._bucket_of.to(cuda))
+        assert torch.equal(order_c.cpu(), order) and torch.equal(starts_c.cpu(), starts)
+        S = probes.numel()
+        for sb in index._scan:
+            want_d = torch.full((S, k), -7.0)
+            want_l = torch.full((S, k), -7, dtype=torch.int64)
+            got_d, got_l = want_d.to(cuda), want_l.to(cuda)
+            ivf_scan.scan_flat_grouped(xq, x2, sb.payload, sb.norms, sb.lengths, sb.lists, order,
+                                       starts, nprobe, k, want_d, want_l)
+            before = ivf_scan.launches
+            ivf_scan.scan_flat_grouped(xq.to(cuda), x2.to(cuda), sb.payload.to(cuda),
+                                       sb.norms.to(cuda), sb.lengths.to(cuda), sb.lists.to(cuda),
+                                       order_c, starts_c, nprobe, k, got_d, got_l)
+            torch.cuda.synchronize()
+            assert ivf_scan.launches == before + 1
+            assert_rows_near_ties(got_d, got_l, want_d, want_l)
+
+
+def test_grouped_scan_largest_k(cuda):
+    """The kernel's largest k is the wrapper's ``MAX_K``, at least the 100
+    of ``bench/search_ivf_qinco.py``'s shortlist; beyond it the wrapper
+    raises."""
+    assert load_library().ivf_flat_scan_max_k() == ivf_scan.MAX_K >= 128
+    index = flat_buckets(32, [5, 9], seed=1)
+    sb = index._scan[0]
+    xq = torch.zeros((1, 32), device=cuda)
+    order, starts = ivf_scan.group_slots(torch.tensor([[0, 1]], device=cuda),
+                                         index._bucket_of.to(cuda))
+    k = ivf_scan.MAX_K + 1
+    with pytest.raises(ValueError, match="keeps 1 to"):
+        ivf_scan.scan_flat_grouped(xq, xq[:, 0], sb.payload.to(cuda), sb.norms.to(cuda),
+                                   sb.lengths.to(cuda), sb.lists.to(cuda), order, starts, 2, k,
+                                   torch.empty((2, k), device=cuda),
+                                   torch.empty((2, k), dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("storage,quantizer,nprobe,k,nq", [
+    ("flat", "flat", 8, 20, 1000),
+    ("flat", "flat", 8, 20, 1),
+    ("flat", "flat", 64, 20, 1000),
+    ("flat", "hnsw", 72, 20, 64),
+    ("flat", "flat", 8, 129, 64),
+    ("qinco", "flat", 4, 20, 64),
+    ("qinco", "flat", 16, 100, 64),
+    ("pq", "flat", 4, 20, 1000),
+])
+def test_grouped_search_on_card_equals_cpu(cuda, storage, quantizer, nprobe, k, nq):
+    """``search_positional`` on the card, on the CPU index's lists and
+    probes, against the CPU's (the per-bucket torch scans): rtol 1e-5 /
+    atol 1e-4, labels under the near-tie rule; one K5 launch a float bucket
+    a search for k up to ``MAX_K``, none beyond (k 129 takes the torch
+    route). Flat, QINCo and PQ-decoded storage; the HNSW quantizer at
+    nprobe past nlist gives -1 probes; nprobe 64 and 16 probe every list."""
+    rng = np.random.default_rng(12)
+    nlist = 16 if storage == "qinco" else 64
+    cent = rng.standard_normal((nlist, 32)) * 3.0
+    weight = np.where(np.arange(nlist) % 4 == 0, 6.0, 1.0)
+    owner = rng.choice(nlist, size=20000, p=weight / weight.sum())
+    xb = (cent[owner] + rng.standard_normal((20000, 32))).astype(np.float32)
+    # queries around the centres, as tests/test_torch_ivf.py draws them: a
+    # query next to a database row makes ||x||^2 + ||y||^2 - 2 <x, y> cancel
+    # (0.3 out of terms near 300), where float32 rounding in any order of
+    # summation exceeds atol 1e-4
+    xq = (cent[rng.integers(0, nlist, nq)] + rng.standard_normal((nq, 32))).astype(np.float32)
+    cpu_q = QincoCodec(32, 4, ksub=16, hidden=32, device="cpu") if storage == "qinco" else None
+    cpu = IndexIVF(32, nlist, storage=storage, pq_m=8 if storage == "pq" else 0, qinco=cpu_q,
+                   quantizer=quantizer, quantizer_M=8, device="cpu")
+    cpu.train(xb, niter=5, qinco_steps=20)
+    cpu.add(xb)
+    card_q = None
+    if cpu_q is not None:
+        card_q = QincoCodec(32, 4, ksub=16, hidden=32, device=cuda).load_state_dict(
+            cpu_q.model.state_dict())
+    card = IndexIVF(32, nlist, storage=storage, pq_m=8 if storage == "pq" else 0, qinco=card_q,
+                    device=cuda)
+    card.centroids = cpu.centroids.to(cuda)
+    if storage == "pq":
+        card.pq.centroids = cpu.pq.centroids.to(cuda)
+    card.replace_invlists(cpu.invlists)
+    assert card._scan_is_float and len(card._scan) >= 2
+    probes = cpu.coarse_assign(xq, nprobe)
+    if quantizer == "hnsw":
+        assert bool((probes < 0).any())
+    card.coarse_assign = lambda xq_, nprobe_: probes.to(cuda)
+    D0, L0 = cpu.search_positional(xq, k, nprobe)
+    before = ivf_scan.launches
+    D1, L1 = card.search_positional(xq, k, nprobe)
+    torch.cuda.synchronize()
+    assert ivf_scan.launches == before + (len(card._scan) if k <= ivf_scan.MAX_K else 0)
+    assert_rows_near_ties(D1, L1, D0, L0)
 
 
 def test_pq_interleaved_search_on_card(cuda, monkeypatch):

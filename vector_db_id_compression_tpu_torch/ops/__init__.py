@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels for the ROC codec and two probes of its decode
-step, their build and their wrappers."""
+"""Hand-written CUDA kernels for the ROC codec, the IVF search's grouped
+float scan and two probes of the ROC decode step, their build and their
+wrappers."""

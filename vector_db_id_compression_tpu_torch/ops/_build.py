@@ -114,6 +114,10 @@ def load_library() -> ctypes.CDLL:
     lib.probe_chain_decode_launch.restype = I
     lib.probe_chain_encode_launch.argtypes = [P, P, P, I, I, P, I, I, P, P, I, P, P, P, P]
     lib.probe_chain_encode_launch.restype = I
+    lib.ivf_flat_scan_launch.argtypes = [P, P, P, P, I, I, I, P, P, P, P, I, I, I, P, P, P]
+    lib.ivf_flat_scan_launch.restype = I
+    lib.ivf_flat_scan_max_k.argtypes = []
+    lib.ivf_flat_scan_max_k.restype = I
     lib.roc_error_string.argtypes = [I]
     lib.roc_error_string.restype = ctypes.c_char_p
     return lib

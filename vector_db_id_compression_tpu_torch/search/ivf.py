@@ -15,7 +15,12 @@ Everything is plain torch on the index's device:
   coarse:    [nq, d] x [d, nlist] matrix product + top-nprobe, or the graph
              search of an HNSW over the centroids (``quantizer="hnsw"``,
              -1 for the slots it does not reach; they probe nothing)
-  flat scan: per size bucket, a batched matrix-vector product over the
+  flat scan: on the card (k up to ``ops/ivf_scan.py`` ``MAX_K``), the
+             (query, list) slots grouped by list on the device, then per
+             size bucket one launch of the grouped scan kernel (K5), which
+             reads each probed list once for all its queries and writes
+             each slot's k nearest into the candidates. Otherwise, per size
+             bucket, a batched matrix-vector product over the
              gathered (query, list) probe pairs + masked top-k, in chunks of
              at most ``SCAN_BUDGET`` gathered payload elements; or, where the
              pairs cover at least a quarter of all (query, list) pairs of
@@ -46,6 +51,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve
 from ..models.qinco import QincoCodec, params_from_leaves, params_to_leaves
+from ..ops import ivf_scan
 from ..store.invlists import InvertedLists
 from ..store.ragged import bucketize
 from ..utils import profiling
@@ -82,6 +88,7 @@ class _ScanBucket:
     payload: torch.Tensor           # float scan f32[B, n_pad, d]; LUT scan u8[B, M, n_pad]
     norms: Optional[torch.Tensor]   # float scan f32[B, n_pad], ||y||^2
     n_pad: int
+    lists: torch.Tensor             # i64[B], each lane's list number
 
 
 def _scan_flat_pairs(xq, sb: _ScanBucket, q_idx, lanes, k: int):
@@ -139,6 +146,19 @@ def _masked_topk(d2, sb: _ScanBucket, lanes, k: int):
         dists = torch.nn.functional.pad(dists, (0, k - kk), value=float("inf"))
         offs = torch.nn.functional.pad(offs, (0, k - kk), value=0)
     return dists, offs
+
+
+def _merge_candidates(cand_d, cand_l, k: int):
+    """Candidates f32[nq, nprobe, k], i64[nq, nprobe, k] → the k nearest a
+    query (D f32[nq, k], labels i64[nq, k]; +inf where the label is -1):
+    one stable argsort over the nprobe * k candidates."""
+    nq = cand_d.shape[0]
+    cand_d = cand_d.reshape(nq, -1)
+    cand_l = cand_l.reshape(nq, -1)
+    order = torch.argsort(cand_d, dim=1, stable=True)[:, :k]
+    D = torch.gather(cand_d, 1, order)
+    L = torch.gather(cand_l, 1, order)
+    return torch.where(L >= 0, D, float("inf")), L
 
 
 class IndexIVF:
@@ -347,7 +367,8 @@ class IndexIVF:
             scan.append(_ScanBucket(
                 lengths=torch.from_numpy(bucket.lengths.astype(np.int64)).to(device),
                 payload=payload, n_pad=bucket.n_pad,
-                norms=(payload * payload).sum(dim=2) if decoded else None))
+                norms=(payload * payload).sum(dim=2) if decoded else None,
+                lists=torch.from_numpy(lists.astype(np.int64)).to(device)))
         return scan, bucket_of, lane_of
 
     def _qinco_payload(self, codes: np.ndarray, list_ids: np.ndarray) -> torch.Tensor:
@@ -372,53 +393,83 @@ class IndexIVF:
         with profiling.span("ivf.positional", self.device):
             nprobe = nprobe or self.nprobe
             xq = self._as_device(xq)
-            nq = xq.shape[0]
             probes = self.coarse_assign(xq, nprobe)
-            # bucket -1 for empty lists and for -1 probes (an HNSW quantizer's
-            # unreached slots), which must not index the table
-            b_of = torch.where(probes >= 0, self._bucket_of[probes.clamp(min=0)], -1)
-            inf = float("inf")
-            cand_d = torch.full((nq, nprobe, k), inf, device=self.device)
-            cand_l = torch.full((nq, nprobe, k), -1, dtype=torch.int64, device=self.device)
             with profiling.span("ivf.scan", self.device):
-                if self._scan_is_float:
-                    x2 = (xq * xq).sum(dim=1)
-                    width = self.d
+                # the grouped scan kernel keeps at most MAX_K nearest a slot
+                if self._scan_is_float and xq.is_cuda and k <= ivf_scan.MAX_K:
+                    cand_d, cand_l = self._scan_grouped(xq, probes, k)
                 else:
-                    luts = self.pq.compute_luts(xq)
-                    x2 = torch.zeros(nq, device=self.device)  # LUT distances are complete
-                    width = self.pq.M
+                    cand_d, cand_l = self._scan_pairs(xq, probes, k)
+            return _merge_candidates(cand_d, cand_l, k)
 
-                def emit(q, p, ln, dists, offs):
-                    valid = torch.isfinite(dists)
-                    cand_d[q, p] = torch.where(valid, dists + x2[q, None], inf)
-                    cand_l[q, p] = torch.where(valid, lo_build(ln[:, None], offs), -1)
+    def _candidates(self, nq: int, nprobe: int, k: int):
+        """Empty candidates: (+inf f32[nq, nprobe, k], -1 i64[nq, nprobe, k])."""
+        return (torch.full((nq, nprobe, k), float("inf"), device=self.device),
+                torch.full((nq, nprobe, k), -1, dtype=torch.int64, device=self.device))
 
-                for si, sb in enumerate(self._scan):
-                    q_arr, p_arr = torch.nonzero(b_of == si, as_tuple=True)
-                    profiling.count("host_syncs")
-                    lns = probes[q_arr, p_arr]
-                    lanes = self._lane_of[lns]
-                    # the JAX package's rule: the dense scan pays the whole bucket's
-                    # top-k, so only where the pairs cover a quarter of it
-                    if self._scan_is_float and 4 * q_arr.numel() >= nq * sb.lengths.numel():
-                        dists, offs = _scan_flat_dense(xq, sb, k)
-                        emit(q_arr, p_arr, lns, dists[q_arr, lanes], offs[q_arr, lanes])
-                        continue
-                    chunk = max(1, SCAN_BUDGET // (sb.n_pad * width))
-                    for s in range(0, q_arr.numel(), chunk):
-                        q, p, ln = q_arr[s:s + chunk], p_arr[s:s + chunk], lns[s:s + chunk]
-                        if self._scan_is_float:
-                            dists, offs = _scan_flat_pairs(xq, sb, q, lanes[s:s + chunk], k)
-                        else:
-                            dists, offs = _scan_pq_pairs(luts, sb, q, lanes[s:s + chunk], k)
-                        emit(q, p, ln, dists, offs)
-            cand_d = cand_d.reshape(nq, nprobe * k)
-            cand_l = cand_l.reshape(nq, nprobe * k)
-            order = torch.argsort(cand_d, dim=1, stable=True)[:, :k]
-            D = torch.gather(cand_d, 1, order)
-            L = torch.gather(cand_l, 1, order)
-            return torch.where(L >= 0, D, inf), L
+    def _scan_grouped(self, xq, probes, k: int):
+        """The float buckets' scan through ``ops/ivf_scan.py`` → candidates
+        (f32[nq, nprobe, k], i64[nq, nprobe, k]): the slots grouped by list
+        on the device, then one ``scan_flat_grouped`` a bucket (the kernel
+        K5 on the card, its plain version on the CPU); no host sync."""
+        nq, nprobe = probes.shape
+        cand_d, cand_l = self._candidates(nq, nprobe, k)
+        x2 = (xq * xq).sum(dim=1)
+        order, starts = ivf_scan.group_slots(probes, self._bucket_of)
+        for sb in self._scan:
+            ivf_scan.scan_flat_grouped(xq, x2, sb.payload, sb.norms, sb.lengths, sb.lists,
+                                       order, starts, nprobe, k, cand_d, cand_l)
+        profiling.count("scan_grouped_slots", nq * nprobe)
+        return cand_d, cand_l
+
+    def _scan_pairs(self, xq, probes, k: int):
+        """The per-bucket torch scan → candidates (f32[nq, nprobe, k],
+        i64[nq, nprobe, k]): each bucket's (query, probe) pairs found by a
+        ``nonzero`` (a host sync), then the dense scan where they cover a
+        quarter of the bucket's pairs (float payload), else the pair scan
+        (float payload, or ``compute_luts`` and the LUT scan) in chunks of
+        ``SCAN_BUDGET``."""
+        inf = float("inf")
+        nq, nprobe = probes.shape
+        cand_d, cand_l = self._candidates(nq, nprobe, k)
+        profiling.count("scan_grouped_slots", 0)
+        luts = None
+        if self._scan_is_float:
+            x2 = (xq * xq).sum(dim=1)
+            width = self.d
+        else:
+            luts = self.pq.compute_luts(xq)
+            x2 = torch.zeros(nq, device=self.device)  # LUT distances are complete
+            width = self.pq.M
+
+        def emit(q, p, ln, dists, offs):
+            valid = torch.isfinite(dists)
+            cand_d[q, p] = torch.where(valid, dists + x2[q, None], inf)
+            cand_l[q, p] = torch.where(valid, lo_build(ln[:, None], offs), -1)
+
+        # bucket -1 for empty lists and for -1 probes (an HNSW quantizer's
+        # unreached slots), which must not index the table
+        b_of = torch.where(probes >= 0, self._bucket_of[probes.clamp(min=0)], -1)
+        for si, sb in enumerate(self._scan):
+            q_arr, p_arr = torch.nonzero(b_of == si, as_tuple=True)
+            profiling.count("host_syncs")
+            lns = probes[q_arr, p_arr]
+            lanes = self._lane_of[lns]
+            # the JAX package's rule: the dense scan pays the whole bucket's
+            # top-k, so only where the pairs cover a quarter of it
+            if self._scan_is_float and 4 * q_arr.numel() >= nq * sb.lengths.numel():
+                dists, offs = _scan_flat_dense(xq, sb, k)
+                emit(q_arr, p_arr, lns, dists[q_arr, lanes], offs[q_arr, lanes])
+                continue
+            chunk = max(1, SCAN_BUDGET // (sb.n_pad * width))
+            for s in range(0, q_arr.numel(), chunk):
+                q, p, ln = q_arr[s:s + chunk], p_arr[s:s + chunk], lns[s:s + chunk]
+                if self._scan_is_float:
+                    dists, offs = _scan_flat_pairs(xq, sb, q, lanes[s:s + chunk], k)
+                else:
+                    dists, offs = _scan_pq_pairs(luts, sb, q, lanes[s:s + chunk], k)
+                emit(q, p, ln, dists, offs)
+        return cand_d, cand_l
 
     def search_defer_id_decoding(self, xq, k: int, nprobe: Optional[int] = None,
                                  decode_1by1: Optional[bool] = None, return_codes: int = 0,

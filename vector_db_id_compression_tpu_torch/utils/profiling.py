@@ -31,8 +31,10 @@ The search path's spans (``search/ivf.py``, ``ops/roc_decode.py``):
                     ``unique``, the gather and the scatter
       roc.decode    RocDecoder.decode_lanes: K1's launch and its error check
 
-and the counter ``host_syncs``, added at each place on that path where the
-host waits for the device.
+and the counters ``host_syncs``, added at each place on that path where the
+host waits for the device, and ``scan_grouped_slots``, in ``ivf.scan``: the
+(query, probe) slots that the grouped scan kernel (K5) took in a search, 0
+where the search took the per-bucket torch scan.
 """
 
 from __future__ import annotations
