@@ -4,26 +4,30 @@
 
 from the root of a checkout that holds ``BENCHMARK.json``. A run makes its
 inputs from the seed on the card, builds the port's index through its own
-API, warms up the cell's own shapes, calls ``IndexIVF.search_defer_id_decoding``
-in a closed loop for ``--seconds``, judges a sample of the results against
-the float64 reference in ``reference/``, and prints one JSON line last on
+API, warms up the cell's own shapes, makes the kind's timed call (for IVF
+``IndexIVF.search_defer_id_decoding``) in a closed loop for ``--seconds``,
+judges a sample of the results against the kind's plain reference in
+``reference/``, and prints one JSON line last on
 standard output (``correct``, ``attempted``, ``failed``, ``metrics``,
 ``device``, with ``--trace 1`` ``breakdown``, then ``card`` and ``check``),
 each compared number and its limit last on standard error. Without a CUDA
 device it exits 2 and prints no result. ``--trace 0`` reports the cell's
-end-to-end metrics, ``--trace 1`` its per-layer ones (CUDA-event spans
-around ``search_positional`` and ``_translate``, torch.profiler over part of
-the window).
+end-to-end metrics, ``--trace 1`` its per-layer ones (the kind's spans, for
+IVF CUDA events around ``search_positional`` and ``_translate``;
+torch.profiler over part of the window).
 
 Everything is found by name, so a later change adds files and entries and
 edits none:
 
 - a cell: an entry of ``workloads`` in ``BENCHMARK.json`` naming a
   configuration and a traffic mix;
-- a configuration: ``idbench/configs/<config>.json`` (sizes, payload, id
-  codec, translate, nprobe, the scan path the port must take, the
-  generator's scales, the check's ``limits``; ``reduced`` and ``assumed``)
-  and its entry in ``configs``;
+- a configuration: ``idbench/configs/<config>.json`` (its ``kind``, sizes,
+  payload, id codec, translate, nprobe, the scan path the port must take,
+  the generator's scales, the check's ``limits``; ``reduced`` and
+  ``assumed``) and its entry in ``configs``;
+- a kind of index: ``idbench/kinds/<kind>.py`` (inputs, build, timed call,
+  spans, check; the contract is in ``kinds/__init__.py``) and its plain
+  reference under ``idbench/reference/``;
 - a traffic mix: ``idbench/traffic/<mix>.json`` (queries a call, k, the
   pool, warm-up, sampled calls, traced calls), read by the one closed-loop
   generator in ``harness.py``;
@@ -36,8 +40,9 @@ edits none:
 A run pins itself to the last core it may use and keeps torch's CPU work
 to one thread (``OMP_NUM_THREADS=1`` unless set).
 
-Where the data comes from: ``data.py`` (clustered corpus around the
-centroids, PQ codebooks, query pool; ``torch.Generator`` on the card).
+Where the data comes from: the kind's ``make_inputs``; for IVF ``data.py``
+(clustered corpus around the centroids, PQ codebooks, query pool;
+``torch.Generator`` on the card).
 The control of the check (the reference in TF32 in the program's place) and
 the program's readings over many seeds: ``python3 -m idbench.control``.
 CPU self-tests: ``python -m pytest idbench/tests -q``.

@@ -1,42 +1,43 @@
 """The comparison that decides ``correct``.
 
-Once the window has closed and the program's index is freed, the inputs
-are made again from the seed and the float64 reference
-(``reference/ivf.py``) judges every sampled query's result, as the timed
-path returned it. Two numbers, each the largest over the sampled queries,
-each beside its limit from the configuration file (``limits``):
-
-- ``dist_err``: a returned distance against the reference's distance of the
-  returned id, relative to 2 ||x||^2 (the scan, the translate);
-- ``rank_gap``: the returned results against the reference's top-k over
-  the lists the query surely probes (the coarse stage, the scan's
-  completeness, the merge; a missing, repeated or unprobed id reads
-  ``reference.ivf.MISSING``).
+Once the window has closed and the program's index is freed, the kind's
+``Reference`` (``kinds/<kind>.py``) makes the inputs again from the seed,
+has its plain reference under ``reference/`` read every sampled result as
+the timed path returned it, and hands ``judge`` one reading per sampled
+query for each of its numbers. Each number is reported as its largest
+reading, beside its limit from the configuration file (``limits``); a
+reading for every limit, and a limit for every reading, or ``judge``
+raises, so a kind cannot leave a stated limit unchecked.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-from .reference.ivf import ReferenceIVF
 
-NUMBERS = ("dist_err", "rank_gap")
-
-
-def judge(ref: ReferenceIVF, xq: torch.Tensor, D: torch.Tensor, I: torch.Tensor,
-          nprobe: int, limits: dict) -> dict:
-    """{number: (largest reading, limit)}, and the count of sampled queries
-    that break a limit, under ``"failed"``."""
-    dist_err, rank_gap = ref.judge(xq, D, I, nprobe)
-    per = {"dist_err": dist_err, "rank_gap": rank_gap}
-    bad = torch.zeros_like(dist_err, dtype=torch.bool)
+def judge(per: Dict[str, torch.Tensor], limits: dict) -> dict:
+    """{number: (largest reading, limit)} of the readings ``per`` (one a
+    sampled query), and the count of sampled queries that break a limit,
+    under ``"failed"``. Raises ``ValueError`` where there are no limits, or
+    the numbers read are not those that ``limits`` names."""
+    if not limits or set(per) != set(limits):
+        raise ValueError(f"the check read {sorted(per)}, the configuration's limits are "
+                         f"{sorted(limits)}")
+    bad = False
     out = {}
-    for name in NUMBERS:
-        bad |= ~(per[name] <= limits[name])  # NaN breaks too
-        out[name] = (float(per[name].max()) if per[name].numel() else 0.0, limits[name])
+    for name, x in per.items():
+        bad = bad | ~(x <= limits[name])  # NaN breaks too
+        out[name] = (float(x.max()) if x.numel() else 0.0, limits[name])
     out["failed"] = int(bad.sum())
     return out
 
 
+def numbers(result: dict) -> list:
+    """The numbers of a ``judge`` result, in its order."""
+    return [n for n in result if n != "failed"]
+
+
 def passed(result: dict) -> bool:
-    return result["failed"] == 0 and all(result[n][0] <= result[n][1] for n in NUMBERS)
+    return result["failed"] == 0 and all(result[n][0] <= result[n][1] for n in numbers(result))

@@ -5,14 +5,15 @@ benchmark's own runs).
         --control-seeds 1 2 3 --seconds 1.5
 
 For each seed, on the card: the configuration's inputs and the port's
-index, as a run builds them; for every traffic mix of a cell of this
+index, as a run builds them, through the configuration's kind
+(``kinds/<kind>.py``); for every traffic mix of a cell of this
 configuration in ``BENCHMARK.json``, a short window at the cell's own load
 through the harness's window, and its sampled results judged by the
-float64 reference (the program's reading: the lower end of each limit).
-For the control seeds, the reference in TF32 (operands of every dot
-product rounded to TF32, as a tensor core with TF32 enabled takes them)
-put in the program's place, on the same sampled queries at the same k and
-nprobe, and judged the same way (the upper end). One JSON line per seed
+kind's reference (the program's reading: the lower end of each limit).
+For the control seeds, the kind's control (for IVF the reference in TF32:
+operands of every dot product rounded to TF32, as a tensor core with TF32
+enabled takes them) put in the program's place, on the same sampled
+queries, and judged the same way (the upper end). One JSON line per seed
 and mix; ``--out`` also writes them to a file.
 """
 
@@ -27,53 +28,44 @@ from pathlib import Path
 
 import torch
 
-from . import check, data
-from .harness import ROOT, build_index, load_cell, run_window, warm_up
-from .reference.ivf import ReferenceIVF
+from . import check
+from .harness import ROOT, load_cell, run_window, warm_up
 
 
 def readings(cfg: dict, cells: list, seed: int, seconds: float, control: bool,
              device: torch.device) -> list:
     """[{cell, seed, program: {number: reading}, control: {...} or None}]."""
+    kind = cells[0].kind
     pool = max(c.traffic["pool"] for c in cells)
     t0 = time.perf_counter()
-    inputs = data.make_inputs(cfg, seed, pool, device)
+    inputs = kind.make_inputs(cfg, seed, pool, device)
     queries = inputs.queries
-    index = build_index(cfg, inputs, device)
+    index = kind.build(cfg, inputs, device)
     del inputs
     t_build = time.perf_counter() - t0
     samples = {}
     for c in cells:
-        warm_up(index, cfg, c.traffic, queries, device)
-        w = run_window(index, cfg, c.traffic, queries, seconds, seed, device)
+        warm_up(kind, index, cfg, c.traffic, queries, device)
+        w = run_window(kind, index, cfg, c.traffic, queries, seconds, seed, device)
         samples[c.name] = w.sample
     del index
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    inputs = data.make_inputs(cfg, seed, pool, device)
-    t1 = time.perf_counter()
-    ref = ReferenceIVF(inputs.centroids, inputs.xb, inputs.codebooks)
-    t_ref = time.perf_counter() - t1
-    ctl = None
-    if control:
-        ctl = ReferenceIVF(inputs.centroids, inputs.xb, inputs.codebooks, precision="tf32")
+    ref = kind.Reference(cfg, seed, pool, device)
+    t_ref = ref.seconds["reference"]
     out = []
     for c in cells:
-        nq, k = c.traffic["queries_per_call"], c.traffic["k"]
         sample = samples[c.name]
-        xq = torch.cat([inputs.queries[s:s + nq] for s, _, _ in sample])
-        D = torch.cat([d for _, d, _ in sample])
-        I = torch.cat([i for _, _, i in sample])
         t2 = time.perf_counter()
-        prog = check.judge(ref, xq, D, I, cfg["nprobe"], cfg["limits"])
-        row = {"cell": c.name, "seed": seed, "queries": int(xq.shape[0]),
-               "program": {n: prog[n][0] for n in check.NUMBERS}, "control": None,
+        prog = ref.judge(c.traffic, sample)
+        row = {"cell": c.name, "seed": seed,
+               "queries": len(sample) * c.traffic["queries_per_call"],
+               "program": {n: prog[n][0] for n in check.numbers(prog)}, "control": None,
                "build_s": t_build, "reference_s": t_ref + time.perf_counter() - t2}
-        if ctl is not None:
-            Dc, Ic = ctl.search(xq, k, cfg["nprobe"])
-            cv = check.judge(ref, xq, Dc, Ic, cfg["nprobe"], cfg["limits"])
-            row["control"] = {n: cv[n][0] for n in check.NUMBERS}
+        if control:
+            cv = ref.control(c.traffic, sample)
+            row["control"] = {n: cv[n][0] for n in check.numbers(cv)}
             row["control_correct"] = check.passed(cv)
         out.append(row)
     return out
@@ -107,7 +99,7 @@ def main(argv=None) -> int:
         Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in rows))
     for c in cells:
         mine = [r for r in rows if r["cell"] == c.name]
-        for n in check.NUMBERS:
+        for n in mine[0]["program"] if mine else ():
             lower = max(r["program"][n] for r in mine)
             ctl = [r["control"][n] for r in mine if r["control"] is not None]
             print(f"{c.name} {n}: lower (program, {len(mine)} seeds) {lower!r}; upper "

@@ -1,8 +1,8 @@
 """One run of one cell: set-up, a timed window, the check, the result line.
 
-Everything that belongs to one configuration, one traffic mix or one
-metric is found by name (see ``__main__.py``); this file holds what all
-cells share.
+Everything that belongs to one configuration, one kind of index
+(``kinds/``), one traffic mix or one metric is found by name (see
+``__main__.py``); this file holds what all cells share.
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional
+from types import ModuleType, SimpleNamespace
+from typing import Callable, List, Optional
 
 import torch
 
-from . import check, data
-from .reference.ivf import ReferenceIVF
+from . import check
+from .kinds import NAMES as KIND_NAMES
 from .roofline import peaks_of
 from .trace import reduce_trace
 
@@ -34,10 +34,6 @@ ROOT = Path(__file__).resolve().parent.parent
 _T0 = time.perf_counter()
 # top-level module names that no run may have loaded when it prints its result
 BANNED_MODULES = ("jax", "jaxlib", "flax", "vector_db_id_compression_tpu")
-
-
-class SetupError(RuntimeError):
-    """The program did not set itself up as the configuration states."""
 
 
 # ------------------------------------------------------------------ the cell
@@ -51,14 +47,16 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     root: Path
+    kind: ModuleType
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its configuration
-    file, its traffic file ``idbench/traffic/<traffic>.json``, and the
-    metrics it reports: end-to-end ones whose ``workloads`` name it (or that
-    have none), per-layer ones whose ``workloads`` name it (or, without the
-    key, whose ``moves`` it reports)."""
+    file, the kind of index that it names (``idbench/kinds/<kind>.py``), its
+    traffic file ``idbench/traffic/<traffic>.json``, and the metrics it
+    reports: end-to-end ones whose ``workloads`` name it (or that have
+    none), per-layer ones whose ``workloads`` name it (or, without the key,
+    whose ``moves`` it reports)."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -66,12 +64,23 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = json.loads((root / cfg_entry["file"]).read_text())
+    if "kind" not in config:
+        raise SystemExit(f"{cfg_entry['file']} has no key 'kind' (the kind of index: a file "
+                         f"idbench/kinds/<kind>.py)")
+    path = root / "idbench" / "kinds" / f"{config['kind']}.py"
+    if not path.exists():
+        raise SystemExit(f"{cfg_entry['file']} names the kind {config['kind']!r}, and there "
+                         f"is no {path.relative_to(root)}")
+    kind = _load(path, f"idbench_kind_{config['kind']}")
+    missing = [n for n in KIND_NAMES if not hasattr(kind, n)]
+    if missing:
+        raise SystemExit(f"the kind {config['kind']!r} defines no {', '.join(missing)}")
     traffic = json.loads((root / "idbench" / "traffic" / f"{w['traffic']}.json").read_text())
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m else m["moves"] in names)]
-    return Cell(name, w["chips"], config, traffic, e2e, per_layer, root)
+    return Cell(name, w["chips"], config, traffic, e2e, per_layer, root, kind)
 
 
 def reader_path(root: Path, kind: str, name: str) -> Path:
@@ -84,14 +93,16 @@ def reader_path(root: Path, kind: str, name: str) -> Path:
     return path
 
 
-def reader(root: Path, kind: str, name: str) -> Callable:
-    """``read`` of the reader at ``reader_path``."""
-    path = reader_path(root, kind, name)
-    spec = importlib.util.spec_from_file_location(f"idbench_{kind}_{name}".replace(".", "_"),
-                                                  path)
+def _load(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: Path, kind: str, name: str) -> Callable:
+    """``read`` of the reader at ``reader_path``."""
+    return _load(reader_path(root, kind, name), f"idbench_{kind}_{name}").read
 
 
 # --------------------------------------------------------------------- clocks
@@ -113,30 +124,6 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-# ---------------------------------------------------------------------- build
-
-def build_index(cfg: dict, inputs: data.Inputs, device: torch.device):
-    """The port's index over the inputs, through its own API: centroids (and
-    PQ codebooks) set, ``add``, the id container of ``id_codec`` swapped in.
-    Raises ``SetupError`` where the scan path differs from ``scan_path``."""
-    from vector_db_id_compression_tpu_torch.search.ivf import IndexIVF
-    from vector_db_id_compression_tpu_torch.store.invlists import AVAILABLE_COMPRESSED_IVFS
-
-    index = IndexIVF(cfg["d"], cfg["nlist"], storage=cfg["payload"], pq_m=cfg.get("pq_m", 0),
-                     nprobe=cfg["nprobe"], quantizer=cfg["quantizer"], device=device)
-    index.centroids = inputs.centroids
-    if inputs.codebooks is not None:
-        index.pq.centroids = inputs.codebooks
-    index.add(inputs.xb)
-    index.replace_invlists(AVAILABLE_COMPRESSED_IVFS[cfg["id_codec"]](index.invlists,
-                                                                      device=device))
-    path = "float" if index._scan_is_float else "lut"
-    if path != cfg["scan_path"]:
-        raise SetupError(f"the port took the {path} scan, the configuration states "
-                         f"{cfg['scan_path']}")
-    return index
-
-
 # --------------------------------------------------------------------- window
 
 @dataclass
@@ -145,77 +132,29 @@ class Window:
     queries: int = 0
     seconds: float = 0.0
     latencies: List[float] = field(default_factory=list)  # s, one per call
-    sample: List[tuple] = field(default_factory=list)     # (pool start, D, I)
+    sample: List[tuple] = field(default_factory=list)     # (pool start, the call's output)
 
 
-class Spans:
-    """The traced run's spans around the port's layers: CUDA events (host
-    clock on the CPU) around ``search_positional`` and ``_translate``, and
-    the lanes of each ROC decode while the profiler records."""
-
-    def __init__(self, index, device: torch.device):
-        self.device = device
-        self.events: Dict[str, list] = {"positional": [], "translate": []}
-        self.decodes: list = []
-        self.recording = False
-        for attr, name in (("search_positional", "positional"), ("_translate", "translate")):
-            setattr(index, attr, self._wrap(getattr(index, attr), name))
-        decoder = getattr(index.active, "decoder", None)
-        if decoder is not None:
-            decode_lanes = decoder.decode_lanes
-
-            def recorded(idx, _f=decode_lanes, _d=decoder):
-                if self.recording:
-                    self.decodes.append((_d, idx))
-                return _f(idx)
-            decoder.decode_lanes = recorded
-
-    def _wrap(self, fn, name):
-        cuda = self.device.type == "cuda"
-
-        def timed(*a, **kw):
-            if cuda:
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = fn(*a, **kw)
-                e1.record()
-                self.events[name].append((e0, e1))
-            else:
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                self.events[name].append(time.perf_counter() - t0)
-            return out
-        return timed
-
-    def ms(self, name: str) -> List[float]:
-        sync(self.device)
-        ev = self.events[name]
-        if self.device.type == "cuda":
-            return [a.elapsed_time(b) for a, b in ev]
-        return [1e3 * t for t in ev]
-
-
-def warm_up(index, cfg: dict, traffic: dict, queries: torch.Tensor, device) -> None:
+def warm_up(kind: ModuleType, index, cfg: dict, traffic: dict, queries: torch.Tensor,
+            device) -> None:
     """``warmup_calls`` calls of the traffic's own shapes, from the pool's
     start, before the window."""
     nq = traffic["queries_per_call"]
     for c in range(traffic["warmup_calls"]):
         s = (c * nq) % queries.shape[0]
-        index.search_defer_id_decoding(queries[s:s + nq], traffic["k"], cfg["nprobe"],
-                                       decode_1by1=cfg["translate"] == "random_access")
+        kind.call(index, cfg, traffic, queries[s:s + nq])
     sync(device)
 
 
-def run_window(index, cfg: dict, traffic: dict, queries: torch.Tensor, seconds: float,
-               seed: int, device: torch.device, spans: Optional[Spans] = None,
+def run_window(kind: ModuleType, index, cfg: dict, traffic: dict, queries: torch.Tensor,
+               seconds: float, seed: int, device: torch.device, spans=None,
                profiler=None) -> Window:
-    """Closed loop, one client: call ``search_defer_id_decoding`` on the
-    pool's next ``queries_per_call`` queries (cycling), wait for the device,
-    repeat until ``seconds`` have passed. Keeps a reservoir of
-    ``check_calls`` calls' results, drawn from the seed, for the check."""
-    nq, k = traffic["queries_per_call"], traffic["k"]
+    """Closed loop, one client: the kind's ``call`` on the pool's next
+    ``queries_per_call`` queries (cycling), wait for the device, repeat
+    until ``seconds`` have passed. Keeps a reservoir of ``check_calls``
+    calls' outputs, drawn from the seed, for the check."""
+    nq = traffic["queries_per_call"]
     pool = queries.shape[0]
-    one_by_one = cfg["translate"] == "random_access"
     rng = random.Random(seed)
     keep = traffic["check_calls"]
     w = Window()
@@ -225,19 +164,18 @@ def run_window(index, cfg: dict, traffic: dict, queries: torch.Tensor, seconds: 
         if spans is not None and profiler is not None:
             spans.recording = profiler.recording(w.calls)
         t0 = time.perf_counter()
-        D, I = index.search_defer_id_decoding(queries[s:s + nq], k, cfg["nprobe"],
-                                              decode_1by1=one_by_one)
+        out = kind.call(index, cfg, traffic, queries[s:s + nq])
         sync(device)
         t1 = time.perf_counter()
         w.latencies.append(t1 - t0)
         w.calls += 1
         w.queries += nq
         if len(w.sample) < keep:
-            w.sample.append((s, D, I))
+            w.sample.append((s, out))
         else:
             j = rng.randrange(w.calls)
             if j < keep:
-                w.sample[j] = (s, D, I)
+                w.sample[j] = (s, out)
         if profiler is not None:
             profiler.step(w.calls)
         if t1 - t_start >= seconds:
@@ -332,24 +270,24 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     """One run; returns the result object (``correct`` ... ``check``).
     ``fault``, for the tests: called with the built index before the window,
     to break the timed path underneath."""
-    cfg, traffic = cell.config, cell.traffic
-    inputs = data.make_inputs(cfg, seed, traffic["pool"], device)
+    cfg, traffic, kind = cell.config, cell.traffic, cell.kind
+    inputs = kind.make_inputs(cfg, seed, traffic["pool"], device)
     queries = inputs.queries
-    index = build_index(cfg, inputs, device)
+    index = kind.build(cfg, inputs, device)
     del inputs
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     if fault is not None:
         fault(index)
-    warm_up(index, cfg, traffic, queries, device)
+    warm_up(kind, index, cfg, traffic, queries, device)
     age = process_age_s()
     setup_s = age if age is not None else time.perf_counter() - _T0
-    spans = Spans(index, device) if trace else None
+    spans = kind.Spans(index, device) if trace else None
     profiler = Profiler(traffic, device) if trace else None
     if profiler is not None:
         profiler.step(0)
-    w = run_window(index, cfg, traffic, queries, seconds, seed, device, spans, profiler)
+    w = run_window(kind, index, cfg, traffic, queries, seconds, seed, device, spans, profiler)
     result_device = {"platform": "gpu" if device.type == "cuda" else "cpu",
                      "kind": torch.cuda.get_device_name(device) if device.type == "cuda"
                      else "cpu",
@@ -363,11 +301,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     if trace:
         tr, window_s = profiler.finish()
         ctx = SimpleNamespace(
-            spans={n: spans.ms(n) for n in spans.events}, trace=tr, window_s=window_s,
-            traced_calls=profiler.active,
+            trace=tr, window_s=window_s, traced_calls=profiler.active,
             untraced_ms=[1e3 * t for t in w.latencies[profiler.first + profiler.active:]],
-            decodes=spans.decodes, container=index.active, ntotal=index.ntotal,
-            peaks=peaks_of(result_device["kind"]))
+            peaks=peaks_of(result_device["kind"]), **spans.context())
         for m in cell.per_layer:
             v = reader(cell.root, "metrics", m["name"])(ctx)
             if v is not None:
@@ -377,42 +313,25 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
             result_device["window_s"] = window_s
             breakdown = {"device_ops": [[n, s] for n, s in tr.device_ops],
                          "idle_gaps": [[n, s] for n, s in tr.idle_gaps]}
+        del ctx
     else:
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": reader(cell.root, "end_to_end", m["name"])(run_ns),
                                   "unit": m["unit"]}
-    sample = [(s, D.detach(), I.detach()) for s, D, I in w.sample]
+    sample = w.sample
     del index, spans, w
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    verdict = check_sample(cfg, traffic, seed, device, sample)
+    verdict = kind.Reference(cfg, seed, traffic["pool"], device).judge(traffic, sample)
     out = {"correct": check.passed(verdict), "attempted": run_ns.queries,
            "failed": verdict["failed"], "metrics": metrics, "device": result_device}
     if breakdown is not None:
         out["breakdown"] = breakdown
     if device.type == "cuda":
         out["card"] = power_limit()
-    out["check"] = {n: {"value": verdict[n][0], "limit": verdict[n][1]} for n in check.NUMBERS}
-    return out
-
-
-def check_sample(cfg: dict, traffic: dict, seed: int, device: torch.device, sample) -> dict:
-    """The inputs made again from the seed, the float64 reference, and the
-    sampled calls' results judged."""
-    t0 = time.perf_counter()
-    inputs = data.make_inputs(cfg, seed, traffic["pool"], device)
-    ref = ReferenceIVF(inputs.centroids, inputs.xb, inputs.codebooks)
-    sync(device)
-    t1 = time.perf_counter()
-    nq = traffic["queries_per_call"]
-    xq = torch.cat([inputs.queries[s:s + nq] for s, _, _ in sample])
-    D = torch.cat([d for _, d, _ in sample])
-    I = torch.cat([i for _, _, i in sample])
-    out = check.judge(ref, xq, D, I, cfg["nprobe"], cfg["limits"])
-    parts = ", ".join(f"{k} {v:.3f} s" for k, v in ref.seconds.items())
-    print(f"reference: inputs and index {t1 - t0:.3f} s ({parts}), judging {xq.shape[0]} "
-          f"queries {time.perf_counter() - t1:.3f} s", file=sys.stderr)
+    out["check"] = {n: {"value": verdict[n][0], "limit": verdict[n][1]}
+                    for n in check.numbers(verdict)}
     return out
 
 

@@ -18,7 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from idbench import check, control, data, harness
+from idbench import control, data, harness
+from idbench.kinds import SetupError
 from idbench.reference.ivf import MISSING, ReferenceIVF, round_tf32
 
 REPO = Path(__file__).resolve().parents[2]
@@ -85,7 +86,8 @@ def test_every_cell_resolves():
         cell = harness.load_cell(w["name"])
         assert cell.config["name"] == w["config"]
         assert cell.traffic["name"] == w["traffic"]
-        assert set(cell.config["limits"]) == set(check.NUMBERS)
+        assert cell.config["kind"] == "ivf" and cell.kind.__file__.endswith("kinds/ivf.py")
+        assert set(cell.config["limits"]) == {"dist_err", "rank_gap"}
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
         assert len(cell.end_to_end) >= 2 and cell.per_layer
         for m in cell.end_to_end:
@@ -118,7 +120,7 @@ def test_lut_scan_agrees_with_reference(root, monkeypatch):
 
 def test_scan_path_is_checked(root):
     _add(root, "tiny-wrong", "pq", "lut", pq_m=4)
-    with pytest.raises(harness.SetupError):
+    with pytest.raises(SetupError):
         _run(root, "tiny-wrong.tiny-batch")
 
 
@@ -136,6 +138,159 @@ def test_result_line_schema(root):
     traced = _run(root, "tiny-flat.tiny-batch", trace=True, seconds=3.0)
     assert set(traced["metrics"]) == {"calls_traced.tiny"}
     assert traced["metrics"]["calls_traced.tiny"]["value"] == traced["attempted"] / 200
+
+
+TOY_KIND = '''"""A toy kind: brute-force flat search, the whole corpus in one product."""
+
+from types import SimpleNamespace
+
+import torch
+
+from idbench import check as verdicts
+from idbench.reference.toyflat import exact_topk
+
+
+def make_inputs(cfg, seed, pool, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    xb = torch.randn((cfg["n"], cfg["d"]), generator=g, device=device)
+    src = torch.randint(0, cfg["n"], (pool,), generator=g, device=device)
+    queries = xb[src] + 0.1 * torch.randn((pool, cfg["d"]), generator=g, device=device)
+    return SimpleNamespace(xb=xb, queries=queries)
+
+
+def build(cfg, inputs, device):
+    return SimpleNamespace(xb=inputs.xb, norms=(inputs.xb ** 2).sum(1))
+
+
+def call(index, cfg, traffic, xq):
+    d = index.norms[None] - 2 * xq @ index.xb.T + (xq ** 2).sum(1, keepdim=True)
+    return tuple(torch.topk(d, traffic["k"], dim=1, largest=False))
+
+
+class Spans:
+    def __init__(self, index, device):
+        self.index, self.recording = index, False
+
+    def context(self):
+        return {"toy_rows": self.index.xb.shape[0]}
+
+
+class Reference:
+    def __init__(self, cfg, seed, pool, device):
+        self.cfg, self.inputs = cfg, make_inputs(cfg, seed, pool, device)
+        self.seconds = {"reference": 0.0}
+
+    def judge(self, traffic, sample):
+        D = torch.cat([out[0] for _, out in sample])
+        I = torch.cat([out[1] for _, out in sample])
+        return self._verdict(traffic, self._queries(traffic, sample), D, I)
+
+    def control(self, traffic, sample):
+        xq = self._queries(traffic, sample)
+        return self._verdict(traffic, xq, *exact_topk(self.inputs.xb, xq, traffic["k"],
+                                                      torch.bfloat16))
+
+    def _queries(self, traffic, sample):
+        nq = traffic["queries_per_call"]
+        return torch.cat([self.inputs.queries[s:s + nq] for s, _ in sample])
+
+    def _verdict(self, traffic, xq, D, I):
+        xb = self.inputs.xb
+        ref_d, _ = exact_topk(xb, xq, traffic["k"], torch.float64)
+        scale = 2 * (xq.double() ** 2).sum(1, keepdim=True)
+        own = ((xq.double()[:, None] - xb.double()[I]) ** 2).sum(-1)
+        per = {"dist_err": ((D.double() - own).abs() / scale).amax(1),
+               "rank_gap": ((own.sort(1).values - ref_d) / scale).amax(1)}
+        return verdicts.judge({n: per[n] for n in READ}, self.cfg["limits"])
+
+
+# the numbers that this kind reads (a test narrows it)
+READ = ("dist_err", "rank_gap")
+'''
+
+TOY_REFERENCE = '''"""The toy kind's plain reference: exact top-k by squared L2."""
+
+import torch
+
+
+def exact_topk(xb, xq, k, dtype):
+    d = torch.cdist(xq.to(dtype).double(), xb.to(dtype).double()) ** 2
+    return tuple(torch.topk(d, k, dim=1, largest=False))
+'''
+
+
+@pytest.fixture
+def toy(root, monkeypatch):
+    """The root's copy with a new kind added as files alone: a kind file, its
+    reference under ``idbench/reference/``, a configuration, a reader of the
+    kind's own context and the cell's entries; ``harness.py`` untouched."""
+    import idbench.reference
+
+    harness_before = (root / "idbench/harness.py").read_bytes()
+    (root / "idbench/kinds/toyflat.py").write_text(TOY_KIND)
+    (root / "idbench/reference/toyflat.py").write_text(TOY_REFERENCE)
+    (root / "idbench/metrics/toy_rows.py").write_text("def read(ctx):\n    return ctx.toy_rows\n")
+    # the copy's idbench/reference/ is where ``idbench.reference.toyflat`` resolves
+    monkeypatch.setattr(idbench.reference, "__path__",
+                        [str(root / "idbench/reference"), *idbench.reference.__path__])
+    monkeypatch.delitem(sys.modules, "idbench.reference.toyflat", raising=False)
+    cfg = {"name": "toy", "kind": "toyflat", "n": 3000, "d": 16,
+           "limits": {"dist_err": 1e-5, "rank_gap": 1e-5}}
+    (root / "idbench/configs/toy.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "toy", "source": "test", "file": "idbench/configs/toy.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "toy.tiny-batch", "config": "toy",
+                               "traffic": "tiny-batch", "chips": 1, "why": "test"})
+    bench["end_to_end"][0]["workloads"].append("toy.tiny-batch")
+    bench["per_layer"].append({"name": "toy_rows", "unit": "rows", "better": "higher",
+                               "source": "program_counter", "layer": "test", "moves": "qps",
+                               "workloads": ["toy.tiny-batch"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    yield root
+    assert (root / "idbench/harness.py").read_bytes() == harness_before
+
+
+def test_a_new_kind_comes_as_files_alone(toy):
+    """A kind added as one file (with its reference, configuration, reader
+    and entries) runs through ``harness.run``: untraced and traced, its
+    check passes the program and fails an altered answer and its control."""
+    out = _run(toy, "toy.tiny-batch")
+    assert out["correct"], out["check"]
+    assert set(out["metrics"]) == {"qps", "setup_s"} and set(out["check"]) == {"dist_err",
+                                                                                "rank_gap"}
+    traced = _run(toy, "toy.tiny-batch", trace=True, seconds=1.0)
+    assert traced["correct"] and traced["metrics"]["toy_rows"]["value"] == 3000
+
+    def altered(index):
+        index.xb = index.xb.clone()
+        index.xb[0] += 1.0
+    assert not _run(toy, "toy.tiny-batch", fault=altered)["correct"]
+    cells = [harness.load_cell("toy.tiny-batch", toy)]
+    (row,) = control.readings(cells[0].config, cells, SEED, 0.5, True, torch.device("cpu"))
+    assert not row["control_correct"] and row["program"]["dist_err"] < 1e-6
+
+
+def test_a_kind_that_leaves_a_limit_unread_gives_no_result(toy):
+    """A kind whose check reads fewer numbers than the configuration has
+    limits stops the run, naming them, rather than passing unchecked."""
+    cell = harness.load_cell("toy.tiny-batch", toy)
+    cell.kind.READ = ("dist_err",)
+    with pytest.raises(ValueError, match="rank_gap"):
+        harness.run(cell, SEED, 0.5, False, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kind,says", [(None, "no key 'kind'"),
+                                       ("graph-to-come", "'graph-to-come'")])
+def test_configuration_without_a_kind_file_fails_in_load_cell(root, kind, says):
+    cfg = json.loads((root / "idbench/configs/tiny-flat.json").read_text())
+    cfg.pop("kind")
+    if kind is not None:
+        cfg["kind"] = kind
+    (root / "idbench/configs/tiny-flat.json").write_text(json.dumps(cfg))
+    with pytest.raises(SystemExit, match=says):
+        harness.load_cell("tiny-flat.tiny-batch", root)
 
 
 def test_list_sizes_are_the_profiles_for_every_seed():
@@ -232,7 +387,7 @@ def test_control_fails_the_check(root, config):
         (row,) = control.readings(cells[0].config, cells, seed, 0.5, True, torch.device("cpu"))
         assert not row["control_correct"]
         assert row["control"]["dist_err"] > 10 * row["program"]["dist_err"]
-        assert all(row["program"][n] <= TINY["limits"][n] for n in check.NUMBERS)
+        assert all(row["program"][n] <= TINY["limits"][n] for n in TINY["limits"])
 
 
 def test_reference_reads_missing_and_repeated_ids():
